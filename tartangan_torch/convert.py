@@ -1,4 +1,4 @@
-"""Carry generator weights between flax variable trees and torch modules.
+"""Carry weights and Adam state between flax variable trees and torch modules.
 
 A flax tree is ``{"params": ..., "batch_stats": ...}`` of nested dicts with
 array leaves, as ``flax.serialization`` writes it. The torch modules of this
@@ -12,6 +12,12 @@ path rename plus a layout change per leaf:
 - conv ``kernel`` HWIO <-> ``weight`` OIHW; dense ``kernel`` (in, out) <->
   ``weight`` (out, in); attention ``theta/phi/g/o`` are (1, 1, Cin, Cout)
   convs without bias; ``gamma`` is a 0-d array.
+
+The same mapping covers the discriminator (``input_block``, ``blocks_N``,
+``output_block/Dense_0``, ``project_input``) and the Adam state: flax's
+serializer writes optax's ``adam`` state as ``{"0": {"count": int32,
+"mu": <params tree>, "nu": <params tree>}, "1": {}}``, and torch's
+``Adam`` keeps ``step``, ``exp_avg`` and ``exp_avg_sq`` per parameter.
 """
 from __future__ import annotations
 
@@ -65,9 +71,16 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
 def to_flax(module: nn.Module) -> dict:
     """A torch module -> a flax ``{"params", "batch_stats"}`` tree of numpy
     arrays (the inverse of ``from_flax``)."""
+    tree = _to_tree(module.state_dict().items())
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree
+
+
+def _to_tree(named_tensors) -> dict:
     tree = {"params": {}, "batch_stats": {}}
     stats = {v: k for k, v in _STATS.items()}
-    for key, t in module.state_dict().items():
+    for key, t in named_tensors:
         parts = key.split(".")
         *parents, name = parts
         path = []
@@ -94,6 +107,37 @@ def to_flax(module: nn.Module) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[name] = np.array(arr, order="C")  # ascontiguousarray makes 0-d 1-d
-    if not tree["batch_stats"]:
-        del tree["batch_stats"]
     return tree
+
+
+def adam_to_flax(module: nn.Module, opt: torch.optim.Adam) -> dict:
+    """``opt``'s state for ``module``'s parameters as flax serializes
+    ``optax.adam``'s: ``{"0": {"count", "mu", "nu"}, "1": {}}``. A
+    parameter that has no state yet (no step taken) has zero moments."""
+    named = list(module.named_parameters())
+    states = [opt.state.get(p, {}) for _, p in named]
+    steps = {int(s["step"]) for s in states if "step" in s}
+    if len(steps) > 1:
+        raise ValueError(f"Adam state has parameters at steps {sorted(steps)}")
+
+    def moment(key):
+        return _to_tree((name, s[key] if key in s else torch.zeros_like(p))
+                        for (name, p), s in zip(named, states))["params"]
+    count = np.array(steps.pop() if steps else 0, np.int32)
+    return {"0": {"count": count, "mu": moment("exp_avg"),
+                  "nu": moment("exp_avg_sq")}, "1": {}}
+
+
+def adam_from_flax(module: nn.Module, opt: torch.optim.Adam, tree) -> None:
+    """Load an ``adam_to_flax`` tree (or one the JAX trainer wrote) into
+    ``opt``'s state for ``module``'s parameters."""
+    state = tree["0"]
+    mu = from_flax({"params": state["mu"]})
+    nu = from_flax({"params": state["nu"]})
+    step = float(np.asarray(state["count"]))
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
+        }

@@ -1,8 +1,9 @@
-"""Generator building blocks (NCHW).
+"""Generator and discriminator building blocks (NCHW).
 
 Counterparts of ``tartangan_tpu/models/blocks.py``: ``GeneratorInputMLP``
-(:537), ``TiledZGeneratorInput`` (:573), ``ResidualGeneratorBlock`` (:104)
-and ``GeneratorOutput`` (:592). Attribute names follow the flax param tree
+(:537), ``TiledZGeneratorInput`` (:573), ``ResidualGeneratorBlock`` (:104),
+``GeneratorOutput`` (:592), ``DiscriminatorInput`` (:649),
+``ResidualDiscriminatorBlock`` (:717) and ``DiscriminatorOutput`` (:757). Attribute names follow the flax param tree
 (``NormAct_0``, ``Conv_0``, ``project_input``, ...). Every block takes
 ``(x, train)``; ``train=True`` normalizes with batch statistics.
 """
@@ -11,7 +12,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.resize import upsample_nearest_2x
+from ..ops.resize import (
+    avg_pool_2x,
+    downsample_bilinear_half,
+    upsample_nearest_2x,
+)
 from .layers import Conv, Dense, NormAct, activation_fn
 
 
@@ -117,3 +122,64 @@ class GeneratorOutput(nn.Module):
         if self.output_activation == "tanh":
             x = torch.tanh(x)
         return x
+
+
+class DiscriminatorInput(nn.Module):
+    """1x1 conv image -> features."""
+
+    def __init__(self, in_dims: int, out_dims: int):
+        super().__init__()
+        self.Conv_0 = Conv(in_dims, out_dims, 1)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        del train
+        return self.Conv_0(x)
+
+
+class ResidualDiscriminatorBlock(nn.Module):
+    """Pre-activation residual down block.
+
+    main: [norm, act,] conv3(in->out), norm, act, conv3(out->out), avgpool2
+    shortcut: bilinear 0.5x (align_corners=True), then a 1x1 projection iff
+    in != out.
+    """
+
+    def __init__(self, in_dims: int, out_dims: int, first_block: bool = False,
+                 norm: str = "bn", activation: str = "relu"):
+        super().__init__()
+        self.first_block = first_block
+        # flax's creation order, as in ResidualGeneratorBlock
+        mid = "NormAct_0"
+        if not first_block:
+            self.NormAct_0 = NormAct(in_dims, norm, activation)
+            mid = "NormAct_1"
+        self.Conv_0 = Conv(in_dims, out_dims, 3)
+        setattr(self, mid, NormAct(out_dims, norm, activation))
+        self.mid_norm = mid
+        self.Conv_1 = Conv(out_dims, out_dims, 3)
+        if in_dims != out_dims:
+            self.project_input = Conv(in_dims, out_dims, 1)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        h = x if self.first_block else self.NormAct_0(x, train)
+        h = self.Conv_0(h)
+        h = getattr(self, self.mid_norm)(h, train)
+        h = avg_pool_2x(self.Conv_1(h))
+        x = downsample_bilinear_half(x, align_corners=True)
+        if hasattr(self, "project_input"):
+            x = self.project_input(x)
+        return x + h
+
+
+class DiscriminatorOutput(nn.Module):
+    """norm -> act -> spatial sum-pool -> Linear."""
+
+    def __init__(self, in_dims: int, out_dims: int, norm: str = "bn",
+                 activation: str = "relu"):
+        super().__init__()
+        self.NormAct_0 = NormAct(in_dims, norm, activation)
+        self.Dense_0 = Dense(in_dims, out_dims)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x = self.NormAct_0(x, train)
+        return self.Dense_0(x.sum(dim=(2, 3)))

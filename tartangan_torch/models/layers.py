@@ -6,6 +6,7 @@ so ``convert.py`` maps a flax tree onto a ``state_dict`` by renaming paths.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -27,31 +28,64 @@ class BatchNorm(nn.Module):
     """BatchNorm over all axes but the channel axis (dim 1).
 
     In train mode it normalizes with the batch mean and *biased* batch
-    variance, as flax's ``nn.BatchNorm`` does; the running statistics are
-    neither read nor written, so a forward pass never mutates the module
-    (the JAX serve discards the batch-stat update as well). In eval mode it
-    normalizes with the running statistics. Statistics and normalization are
-    computed in float32 and the result is cast back to the input's dtype
-    before the activation.
+    variance, as flax's ``nn.BatchNorm`` does. The running statistics are
+    updated only while ``update_stats`` is set (``update_batch_stats``
+    sets it for the train step): ``ra = 0.9 ra + 0.1 batch`` for the mean
+    and the biased variance, flax's momentum 0.9 (torch's 0.1), in float32
+    and outside autograd. ``F.batch_norm``'s own update would store the
+    unbiased variance, so it is not used. Serving and sampling run
+    train-mode forwards that leave the statistics untouched, as the JAX
+    package discards its batch-stat update there. In eval mode it
+    normalizes with the running statistics. Statistics and normalization
+    are computed in float32 and the result is cast back to the input's
+    dtype before the activation.
     """
+
+    momentum = 0.9  # flax convention: ra = momentum * ra + (1 - m) * batch
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.update_stats = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x32 = x.float()
         if train:
-            y = F.batch_norm(x.float(), None, None, self.weight, self.bias,
+            if self.update_stats:
+                with torch.no_grad():
+                    dims = [d for d in range(x.dim()) if d != 1]
+                    var, mean = torch.var_mean(x32.detach(), dim=dims,
+                                               correction=0)
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                    self.running_var.mul_(m).add_(var, alpha=1 - m)
+            y = F.batch_norm(x32, None, None, self.weight, self.bias,
                              training=True, eps=self.eps)
         else:
-            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+            y = F.batch_norm(x32, self.running_mean, self.running_var,
                              self.weight, self.bias, training=False,
                              eps=self.eps)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def update_batch_stats(*modules: nn.Module):
+    """Within the block, every train-mode ``BatchNorm`` forward in
+    ``modules`` updates its running statistics (flax's ``mutable=
+    ["batch_stats"]``)."""
+    bns = [m for mod in modules for m in mod.modules()
+           if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = False
 
 
 class NormAct(nn.Module):

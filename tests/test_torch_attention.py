@@ -4,7 +4,9 @@
 Inputs come from numpy with a seed. Tolerances: float32 1e-5 (the two
 sides differ only in summation order); bfloat16 outputs compare at 2e-2,
 about two bf16 ulps near 1, since the two frameworks round the bf16 matmul
-operands and outputs at slightly different points.
+operands and outputs at slightly different points. Gradients compare after
+dividing by their max-abs, as tests/test_attention.py does (a sum over Lq
+or Lk terms grows with the length).
 """
 import jax
 import jax.numpy as jnp
@@ -14,10 +16,19 @@ import torch
 
 from tartangan_tpu.models.attention import SelfAttention2d as JaxSelfAttention2d
 from tartangan_tpu.models.attention import _attention as jax_attention
-from tartangan_tpu.ops.pallas.attention import _fused_attention_fwd_impl
+from tartangan_tpu.ops.pallas.attention import (
+    _attn_bwd_impl,
+    _fused_attention_bwd_xla,
+    _fused_attention_fwd_impl,
+)
 from tartangan_torch.convert import from_flax
 from tartangan_torch.models.attention import SelfAttention2d
-from tartangan_torch.ops.attention import attention, attention_plain
+from tartangan_torch.ops.attention import (
+    attention,
+    attention_bwd,
+    attention_bwd_plain,
+    attention_plain,
+)
 
 # (B, Lq, Lk, Ck, Cv): the '512thin' generator's layer at B = 1, and a
 # ragged shape (neither length a multiple of a kernel tile)
@@ -120,3 +131,73 @@ def test_self_attention_matches_jax(rng, use_kernel):
                                rtol=1e-5, atol=1e-5)
     # the attention path reaches the output
     assert np.abs(ref - x).max() > 1e-2
+
+
+def _scaled_close(ours, ref, tol):
+    ref = np.asarray(ref, np.float32)
+    scale = max(float(np.abs(ref).max()), 1e-12)
+    np.testing.assert_allclose(_np(ours) / scale, ref / scale, **tol)
+
+
+# the '512thin' generator's training shape at B = 1 (the Pallas backward
+# needs Lq to be a multiple of its tile), and a ragged one for the XLA form
+BWD_SHAPES = [(1, 4096, 1024, 8, 32), (2, 200, 75, 5, 12)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_plain_matches_jax(rng, shape, dtype):
+    """attention_bwd_plain against ``_fused_attention_bwd_xla`` and, where
+    the Pallas kernel takes the shape, ``_attn_bwd_impl`` in interpret
+    mode (as tests/test_attention.py runs it)."""
+    q, k, v = _qkv(rng, shape)
+    do = rng.standard_normal(shape[:2] + (shape[4],)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(x, jdt) for x in (q, k, v, do)]
+    ours = attention_bwd_plain(*(_torch(x, dtype) for x in (q, k, v, do)))
+    refs = [_fused_attention_bwd_xla(*jargs)]
+    if shape[1] % 512 == 0:
+        refs.append(_attn_bwd_impl(*jargs, interpret=True))
+    for ref in refs:
+        for a, b in zip(ours, ref):
+            assert a.dtype == getattr(torch, dtype) and a.shape == b.shape
+            _scaled_close(a, b, TOL[dtype])
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_functions_match_autograd_through_plain(rng, order):
+    """The two autograd Functions (forward, backward and the backward's
+    vector-Jacobian product) give the gradients of autograd through
+    ``attention_plain``, to second order, w.r.t. q, k and v."""
+    shape = (2, 40, 24, 5, 6)
+
+    def grads(fn):
+        q, k, v = (torch.from_numpy(x).requires_grad_()
+                   for x in _qkv(np.random.default_rng(1), shape))
+        o = fn(q, k, v)
+        w = torch.from_numpy(rng_w.standard_normal(o.shape).astype(np.float32))
+        g = torch.autograd.grad((o * w).sum(), (q, k, v),
+                                create_graph=order > 1)
+        if order == 2:
+            g = torch.autograd.grad(sum(x.square().sum() for x in g),
+                                    (q, k, v))
+        return g
+
+    rng_w = np.random.default_rng(2)
+    ours = grads(attention)
+    rng_w = np.random.default_rng(2)
+    ref = grads(attention_plain)
+    for a, b in zip(ours, ref):
+        _scaled_close(a.detach(), b.numpy(), dict(rtol=1e-5, atol=1e-5))
+
+
+def test_bwd_wrapper_takes_plain_version_on_cpu(rng):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, SHAPES[1]))
+    do = torch.randn(q.shape[0], q.shape[1], v.shape[2])
+    before = attention_bwd.launches
+    out = attention_bwd(q, k, v, do)
+    assert attention_bwd.launches == before
+    for a, b in zip(out, attention_bwd_plain(q, k, v, do)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        attention_bwd(q, k, v, do[:, :-1])
