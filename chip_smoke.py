@@ -15,8 +15,13 @@ printing a result:
    stated below; then the attention's two autograd Functions (K1 forward,
    K2 backward, the plain vector-Jacobian product beneath) against autograd
    through the plain attention, to second order, at the '512thin'
-   discriminator's shape. TF32 is off for matmuls and convolutions in the
-   whole script, so float32 references are full float32.
+   discriminator's shape. Then the parity kernels: K3 (merged-tap parity
+   conv, both modes) at the eight '512thin' G shapes and a ragged one, K4
+   and K5 (the fused G block) at both fused blocks' shapes and one with a
+   projection, K4's sums too, and the two parity autograd Functions'
+   gradients against autograd through the plain forms. TF32 is off for
+   matmuls and convolutions in the whole script, so float32 references are
+   full float32.
 4. serve: writes a full-width '512thin' generator (random weights from a
    seeded ``torch.Generator``, every attention ``gamma`` nonzero) as a run
    directory in the JAX trainer's layout, serves it in-process with
@@ -39,13 +44,28 @@ printing a result:
    shapes; ``generate`` latency at B = 1 and B = 25 and the train step at
    B = 64 (kernel and plain attention), each with a profile of device time
    by kernel and the device's idle share; the train step's peak memory.
+7. parity: trains full-width '512thin' for 3 steps at B = 64 with
+   ``--parity-blocks on``, ``ops.parity.FUSED_G`` and the fused G blocks
+   (``g_block_factory(fused=True)`` through a trainer subclass, as no CLI
+   flag selects them); checks the losses, the K1-K5 launches of each step
+   (5, 5, 16, 4, 4) and the checkpoint's JAX layout. Holds G's and D's
+   forwards against the plain '512thin' G and D on the same weights; then
+   one step from the same state, batch and latents with the kernels, with
+   FUSED_G off and the fused blocks on their plain versions, and on the
+   plain path, each against the plain step in float64. Times the parity
+   step and the plain step in turns (and the parity step with a layout
+   copy before each conv), with a profile and the peak memory; then K3, K4
+   and K5 at the path's shapes (kernel, plain, ``F.conv2d`` of the
+   3x3-packed form for K3, and the bound).
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
-line, the ``nvidia-smi`` name/power-limit line and the result line
+line (K1-K5; K3-K5's times summed over the launches of one G forward),
+the ``nvidia-smi`` name/power-limit line and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -90,6 +110,26 @@ TOL_G = dict(rtol=1e-3, atol=1e-3)
 # blocks downstream of D's attention and R1's second order on top
 TOL_STEP_LOSS = dict(rtol=1e-4, atol=1e-6)
 TOL_STEP_GRAD = dict(rtol=0, atol=1e-3)
+
+# the parity path's step against the plain step in float64 on the same
+# weights, batch and latents. Gradients: the max abs error over the max-abs
+# of the model's whole gradient (max), and the norm of the difference over
+# the norm of the gradient (norm). A float32 step's gradient is not within
+# rounding of float64's: where a pre-activation lies within rounding of 0,
+# float32 may put it on the other side of leaky-relu's kink, whose slope
+# jumps from 1 to 0.2, and with millions of activations some do. Which ones
+# depends on the summation order, so float32 steps that differ only in it
+# (the plain step, the same with channels_last weights, the parity forms
+# with 3x3-packed or merged-tap convs) land 1.6e-3 to 1.3e-2 (G, norm) from
+# float64 on an H100; with elu (smooth) the plain step lands 6e-6 (G) and
+# 1.8e-4 (D, max: the input conv's weight gradient, a sum over 16.7M
+# positions) from it, and is held within TOL_PARITY_STEP_GRAD.
+# So the kernel step must be within the larger of these limits (PR 2's
+# TOL_STEP_GRAD) and PARITY_WITNESS_FACTOR times the largest distance of
+# those float32 steps from float64, measured in the same run; a wiring
+# fault gives errors of order 1
+TOL_PARITY_STEP_GRAD = {"norm": 1e-3, "max": 1e-3}
+PARITY_WITNESS_FACTOR = 3
 
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # launches per train step with R1: K1 in G (D step's fakes, G step) and D
@@ -261,6 +301,171 @@ def check_double_backward(dev):
     log(f"attention Functions vs autograd through attention_plain, B{b} "
         f"Lq{lq} Lk{lk} Ck{ck} Cv{cv} f32, first and second order, error "
         f"over max-abs: {', '.join(errs)} (tolerance 1e-4)")
+
+
+# K3 at the '512thin' G parity blocks' shapes (B 64; x is (B, H, H, Ci),
+# Ci = cin for 'up', 4*cin for 'full'), and a ragged one
+K3_SHAPES = [("block 3 (32x32)", 64, 32, 128, 64),
+             ("block 5 (64x64)", 64, 64, 64, 32),
+             ("block 6 (128x128)", 64, 128, 32, 16),
+             ("block 7 (256x256)", 64, 256, 16, 8),
+             ("ragged", 3, 7, 5, 7)]
+# K4/K5 at the '512thin' fused blocks' shapes (x (B, H, H, Cin) -> Cout),
+# identity shortcut, and one with a projection
+GBLOCK_SHAPES = [("block 1 (8x8)", 64, 8, 128, 128),
+                 ("block 2 (16x16)", 64, 16, 128, 128),
+                 ("projection", 8, 12, 96, 40)]
+# the parity kernels against their plain versions on the card, float32:
+# each error is divided by the plain output's max-abs (a K = 4*Ci term sum,
+# up to 1024 products, in another order than cuDNN's)
+TOL_PARITY = dict(rtol=0, atol=1e-4)
+
+
+def _scaled_err(out, ref):
+    scale = ref.abs().max()
+    return ((out - ref).abs().max() / scale).item(), scale
+
+
+def _assert_scaled(name, out, ref, tol=TOL_PARITY):
+    scale = ref.abs().max()
+    torch.testing.assert_close(out / scale, ref / scale, **tol,
+                               msg=lambda m: f"{name}: {m}")
+
+
+def gblock_params(cin, cout, dev, gen, scale=0.05):
+    p = {"w1": torch.randn(cout, cin, 3, 3, device=dev, generator=gen),
+         "b1": torch.randn(cout, device=dev, generator=gen),
+         "w2": torch.randn(cout, cout, 3, 3, device=dev, generator=gen),
+         "b2": torch.randn(cout, device=dev, generator=gen),
+         "s1": 1 + 0.2 * torch.randn(cin, device=dev, generator=gen),
+         "o1": 0.2 * torch.randn(cin, device=dev, generator=gen),
+         "s2": 1 + 0.2 * torch.randn(cout, device=dev, generator=gen),
+         "o2": 0.2 * torch.randn(cout, device=dev, generator=gen)}
+    p["w1"] *= scale
+    p["w2"] *= scale
+    if cin == cout:
+        p["wp"] = torch.eye(cin, device=dev)
+        p["bp"] = torch.zeros(cout, device=dev)
+    else:
+        p["wp"] = scale * torch.randn(cin, cout, device=dev, generator=gen)
+        p["bp"] = torch.randn(cout, device=dev, generator=gen)
+    return p
+
+
+def phase_parity_kernels(dev):
+    """K3 (both modes), K4 and K5 against their plain versions, and the two
+    autograd Functions' gradients against autograd through the plain forms;
+    returns the largest max-abs error of each at the '512thin' shapes."""
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv,
+        fused_parity_conv_plain,
+        merged_tap_conv,
+    )
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {"parity_conv": 0.0, "gblock_a": 0.0, "gblock_b": 0.0}
+    for label, b, h, cin, cout in K3_SHAPES:
+        for mode in ("up", "full"):
+            wcin = cin if mode == "up" else cout
+            ci = wcin if mode == "up" else 4 * wcin
+            x = torch.randn(b, h, h, ci, device=dev, generator=gen)
+            w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+            out = merged_tap_conv(x, w, cout, mode)
+            ref = fused_parity_conv_plain(x, w, cout, mode)
+            torch.cuda.synchronize()
+            err, scale = _scaled_err(out, ref)
+            log(f"kernel parity_conv '{mode}' {label} x {tuple(x.shape)} -> "
+                f"{tuple(out.shape)}: max_abs_err {err * scale:.3e}, "
+                f"{err:.3e} of the plain output's max-abs (tolerance "
+                f"{TOL_PARITY} on the latter)")
+            _assert_scaled(f"parity_conv {mode} {label}", out, ref)
+            if label != "ragged":
+                worst["parity_conv"] = max(worst["parity_conv"],
+                                           err * scale.item())
+            del x, out, ref
+    for label, b, h, cin, cout in GBLOCK_SHAPES:
+        p = gblock_params(cin, cout, dev, gen)
+        x = torch.randn(b, h, h, cin, device=dev, generator=gen)
+        m1, v1 = G._moments(x)
+        y1p, stats = G.gblock_a(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        y1r, statr = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                      p["b1"])
+        m2 = statr.reshape(2, 4, cout).sum(1)[0] / (4 * b * h * h)
+        v2 = statr.reshape(2, 4, cout).sum(1)[1] / (4 * b * h * h) - m2 ** 2
+        outb = G.gblock_b(y1r, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],
+                          p["wp"], p["bp"])
+        refb = G.gblock_b_plain(y1r, x, m2, v2, p["s2"], p["o2"], p["w2"],
+                                p["b2"], p["wp"], p["bp"])
+        torch.cuda.synchronize()
+        errs = []
+        for name, out, ref in (("y1p", y1p, y1r), ("sum", stats[0], statr[0]),
+                               ("sum of squares", stats[1], statr[1]),
+                               ("out_p", outb, refb)):
+            err, scale = _scaled_err(out, ref)
+            errs.append(f"{name} {err * scale:.3e} ({err:.3e} of max-abs)")
+            _assert_scaled(f"gblock {label} {name}", out, ref)
+            key = "gblock_b" if name == "out_p" else "gblock_a"
+            if label != "projection" and name in ("y1p", "out_p"):
+                worst[key] = max(worst[key], err * scale.item())
+        log(f"kernel gblock_a/gblock_b {label} x {tuple(x.shape)} Cout "
+            f"{cout}: max_abs_err {', '.join(errs)} (tolerance {TOL_PARITY} "
+            f"after dividing by max-abs)")
+    check_parity_functions(dev)
+    return worst
+
+
+def check_parity_functions(dev):
+    """Gradients through ``fused_parity_conv`` and ``fused_gblock`` (kernel
+    forwards, recomputed plain backwards) against autograd through the plain
+    forms, at '512thin' shapes (B 8 to keep it short)."""
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv,
+        fused_parity_conv_plain,
+    )
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs = []
+    for mode, ci, wcin, cout in (("up", 128, 128, 64), ("full", 256, 64, 64)):
+        x = torch.randn(8, 32, 32, ci, device=dev, generator=gen)
+        w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+        bias = torch.randn(cout, device=dev, generator=gen)
+        cot = torch.randn(8, 32, 32, 4 * cout, device=dev, generator=gen)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+            out = fn(*leaves)
+            return (out,) + torch.autograd.grad((out * cot).sum(), leaves)
+
+        ours = grads(lambda a, b, c: fused_parity_conv(a, b, c, cout, mode))
+        ref = grads(lambda a, b, c: fused_parity_conv_plain(a, b, cout, mode)
+                    + c.repeat(4))
+        for name, a, r in zip(("out", "dx", "dw", "db"), ours, ref):
+            errs.append(f"parity_conv {mode} {name} "
+                        f"{_scaled_err(a, r)[0]:.2e}")
+            _assert_scaled(f"fused_parity_conv {mode} {name}", a, r)
+    p = gblock_params(128, 128, dev, gen)
+    x = torch.randn(8, 16, 16, 128, device=dev, generator=gen)
+    cot = torch.randn(8, 32, 32, 128, device=dev, generator=gen)
+    names = ["x"] + list(G.PARAMS)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in [x] +
+                  [p[k] for k in G.PARAMS]]
+        out = fn(leaves[0], dict(zip(G.PARAMS, leaves[1:])))
+        return (out,) + torch.autograd.grad((out * cot).sum(), leaves)
+
+    ours = grads(lambda a, q: G.fused_gblock(a, q)[0])
+    ref = grads(lambda a, q: G.fused_gblock(a, q, use_kernel=False)[0])
+    errs.append(f"gblock out {_scaled_err(ours[0], ref[0])[0]:.2e}")
+    _assert_scaled("fused_gblock out", ours[0], ref[0])
+    # over the max-abs of all the gradients: conv1's bias, before a
+    # train-mode BatchNorm, has a gradient of 0 up to rounding
+    scale = max(r.abs().max() for r in ref[1:])
+    for name, a, r in zip(names, ours[1:], ref[1:]):
+        errs.append(f"gblock d{name} {((a - r).abs().max() / scale):.2e}")
+        torch.testing.assert_close(a / scale, r / scale, **TOL_PARITY)
+    log(f"parity Functions vs autograd through the plain forms, error over "
+        f"max-abs: {', '.join(errs)} (tolerance {TOL_PARITY})")
 
 
 def make_run_dir():
@@ -644,6 +849,552 @@ def time_train(trainer, batch, z_d, z_g):
     return statistics.median(kernel)
 
 
+# launches per train step on the parity path with R1: each G forward (the
+# D step's fakes, the G step) runs K3 twice in each of the 4 parity blocks
+# and K4 and K5 once in each of the 2 fused blocks; the backward of all
+# three is the plain vector-Jacobian product
+K3_PER_STEP, K4_PER_STEP, K5_PER_STEP = 16, 4, 4
+PARITY_DIR = ROOT / "build" / "chip_smoke_parity"
+
+
+def parity_trainer(argv, fused=True):
+    """A ``CNNTrainer`` whose G takes the fused blocks as well
+    (``g_block_factory(fused=True)``), as benchmarks/probe_parity_step.py
+    builds its variants: the CLI has no flag for them."""
+    from tartangan_torch.models import factories as F
+    from tartangan_torch.models.pluggan import Generator
+    from tartangan_torch.train.cnn import CNNTrainer
+
+    class FusedGTrainer(CNNTrainer):
+        def build_generator(self):
+            a = self.args
+            return Generator(
+                self.gan_config,
+                input_factory=F.g_input_factory(a.g_base, a.activation),
+                block_factory=F.g_block_factory(
+                    a.norm, a.activation, fused=fused,
+                    parity=F.resolve_parity(a.parity_blocks)),
+                output_factory=F.g_output_factory(a.norm, a.activation))
+
+    return FusedGTrainer.create_from_cli(argv)
+
+
+def parity_counters():
+    from tartangan_torch.ops.attention import attention, attention_bwd
+    from tartangan_torch.ops.gblock import gblock_a, gblock_b
+    from tartangan_torch.ops.parity_conv import merged_tap_conv
+    return {"attention_fwd": attention, "attention_bwd": attention_bwd,
+            "parity_conv": merged_tap_conv, "gblock_a": gblock_a,
+            "gblock_b": gblock_b}
+
+
+def phase_parity_train(archive):
+    """Train full-width '512thin' at B 64 with --parity-blocks on,
+    ``FUSED_G`` and the fused G blocks for 3 steps through the trainer's
+    entry points; check the losses, the launches per step and the
+    checkpoint's layout."""
+    from tartangan_torch.models.blocks import (
+        FusedResidualGeneratorBlock,
+        ParityResidualDiscriminatorBlock,
+        ParityResidualGeneratorBlock,
+    )
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.utils import msgpack
+    P.FUSED_G = True
+    out_root = PARITY_DIR / "out"
+    shutil.rmtree(out_root, ignore_errors=True)
+    trainer = parity_trainer([
+        str(archive), "--config", "512thin", "--parity-blocks", "on",
+        "--batch-size", "64", "--epochs", "1", "--dtype", "f32", "--device",
+        "cuda", "--run-id", "parity", "--output", str(out_root),
+        "--log-iters", "1", "--log-progress-newlines"])
+    counters = parity_counters()
+    per_step = []
+    train_batch = trainer.train_batch
+
+    def counted(batch):
+        before = {k: f.launches for k, f in counters.items()}
+        metrics = train_batch(batch)
+        per_step.append({k: f.launches - before[k]
+                         for k, f in counters.items()})
+        return metrics
+    trainer.train_batch = counted
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    g, d = trainer.state.g, trainer.state.d
+    kinds = [type(b).__name__ for b in g.blocks]
+    assert kinds == ["ResidualGeneratorBlock"] + \
+        ["FusedResidualGeneratorBlock"] * 2 + \
+        ["ParityResidualGeneratorBlock", "SelfAttention2d"] + \
+        ["ParityResidualGeneratorBlock"] * 3, kinds
+    assert sum(isinstance(b, ParityResidualDiscriminatorBlock)
+               for b in d.blocks) == 4
+    assert isinstance(g.blocks[1], FusedResidualGeneratorBlock)
+    assert isinstance(g.blocks[-1], ParityResidualGeneratorBlock)
+    steps = 192 // 64
+    losses = {k: [float(v) for v in trainer.logs[k]]
+              for k in ("g_loss", "d_loss", "gp")}
+    log(f"parity train: '512thin' B64 float32 --parity-blocks on, FUSED_G, "
+        f"fused G blocks; G blocks {kinds}; {steps} steps in {wall:.1f} s "
+        f"(host clock, sampling and checkpoints included); losses {losses}; "
+        f"launches per step {per_step}; in the whole run {launches}; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    for k, vals in losses.items():
+        assert len(vals) == steps and all(np.isfinite(vals)), (k, vals)
+    want = {"attention_fwd": K1_PER_STEP, "attention_bwd": K2_PER_STEP,
+            "parity_conv": K3_PER_STEP, "gblock_a": K4_PER_STEP,
+            "gblock_b": K5_PER_STEP}
+    if per_step != [want] * steps:
+        raise AssertionError(f"expected {want} launches per step, got "
+                             f"{per_step}")
+    ckpt = out_root / "parity" / "checkpoints" / str(steps)
+    tree = msgpack.loads((ckpt / "g.msgpack").read_bytes())
+    fused = tree["params"]["blocks_1"]
+    assert np.shape(fused["conv1_kernel"]) == (3, 3, 128, 128)
+    assert sorted(tree["batch_stats"]["blocks_1"]) == [
+        "bn1_mean", "bn1_var", "bn2_mean", "bn2_var"]
+    par = tree["params"]["blocks_3"]
+    assert np.shape(par["Conv_0"]["kernel"]) == (3, 3, 128, 64)
+    assert "scale" in par["NormAct_1"]["BatchNorm_0"]["BatchNorm_0"]
+    opt_g = msgpack.loads((ckpt / "opt_g.msgpack").read_bytes())
+    assert np.shape(opt_g["0"]["mu"]["blocks_2"]["conv2_kernel"]) == \
+        (3, 3, 128, 128)
+    assert int(opt_g["0"]["count"]) == steps
+    log(f"parity train: checkpoint {ckpt} is in the JAX layout (fused "
+        f"blocks' flat HWIO kernels and bn*_mean/var, parity blocks' plain "
+        f"trees, optax Adam state)")
+    return trainer, {k: launches[k] for k in ("parity_conv", "gblock_a",
+                                              "gblock_b")}, per_step
+
+
+def plain_state_from_fused(state):
+    """A generator state_dict with fused blocks -> the plain blocks' names
+    (the fused block's flat tree is the plain block's, renamed)."""
+    names = {"conv1_kernel": "Conv_0.weight", "conv1_bias": "Conv_0.bias",
+             "conv2_kernel": "Conv_1.weight", "conv2_bias": "Conv_1.bias",
+             "bn1_scale": "NormAct_0.BatchNorm_0.weight",
+             "bn1_bias": "NormAct_0.BatchNorm_0.bias",
+             "bn1_mean": "NormAct_0.BatchNorm_0.running_mean",
+             "bn1_var": "NormAct_0.BatchNorm_0.running_var",
+             "bn2_scale": "NormAct_1.BatchNorm_0.weight",
+             "bn2_bias": "NormAct_1.BatchNorm_0.bias",
+             "bn2_mean": "NormAct_1.BatchNorm_0.running_mean",
+             "bn2_var": "NormAct_1.BatchNorm_0.running_var",
+             "project_kernel": "project_input.weight",
+             "project_bias": "project_input.bias"}
+    out = {}
+    for key, value in state.items():
+        head, _, leaf = key.rpartition(".")
+        out[f"{head}.{names[leaf]}" if leaf in names else key] = value
+    return out
+
+
+def set_fused_kernels(trainer, use_kernel):
+    from tartangan_torch.models.blocks import FusedResidualGeneratorBlock
+    from tartangan_torch.ops import parity as P
+    P.FUSED_G = use_kernel
+    for m in trainer.state.g.modules():
+        if isinstance(m, FusedResidualGeneratorBlock):
+            m.use_kernel = use_kernel
+
+
+def _step_grads(trainer, batch, z_d, z_g, plain_names=False):
+    """One step from the trainer's current fresh state with D's learning
+    rate 0; (metrics, {name: gradient as Adam's mu})."""
+    for group in trainer.state.opt_d.param_groups:
+        group["lr"] = 0.0
+    metrics = trainer._train_step(trainer.state, batch, z_d, z_g)
+    s = trainer.state
+    grads = {}
+    for tag, model, opt in (("g", s.g, s.opt_g), ("d", s.d, s.opt_d)):
+        named = {f"{tag}.{n}": opt.state[p]["exp_avg"]
+                 for n, p in model.named_parameters()}
+        grads.update(plain_state_from_fused(named) if plain_names else named)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def _hold(label, a, b, witness=None):
+    """Log one step against another: the losses are held at
+    TOL_STEP_LOSS, and with ``witness`` (errors of other steps against the
+    same reference) the gradients too (see TOL_PARITY_STEP_GRAD).
+    Returns ({"g"/"d": {"max": ..., "norm": ...}}, [what failed])."""
+    (m_a, g_a), (m_b, g_b) = a, b
+    failed = []
+    log(f"hold {label}: {m_a} vs {m_b} (tolerance {TOL_STEP_LOSS})")
+    for k in m_a:
+        if not np.isclose(m_a[k], m_b[k], **TOL_STEP_LOSS):
+            failed.append(f"{label}: {k}")
+    assert sorted(g_a) == sorted(g_b)
+    errs = {}
+    for tag in ("g", "d"):
+        keys = [k for k in g_b if k.startswith(tag + ".")]
+        scale = max(g_b[k].abs().max().item() for k in keys)
+        by_key = {k: (g_a[k] - g_b[k]).abs().max().item() / scale
+                  for k in keys}
+        diff2 = sum((g_a[k] - g_b[k]).square().sum().item() for k in keys)
+        norm2 = sum(g_b[k].square().sum().item() for k in keys)
+        errs[tag] = {"max": max(by_key.values()),
+                     "norm": (diff2 / norm2) ** 0.5}
+        tol = None if witness is None else {
+            k: max(v, PARITY_WITNESS_FACTOR * witness[tag][k])
+            for k, v in TOL_PARITY_STEP_GRAD.items()}
+        worst = sorted(by_key, key=by_key.get)[-3:][::-1]
+        log(f"hold {label}: {tag} gradients (Adam mu), max-abs {scale:.3e}:"
+            f" max abs error over it {errs[tag]['max']:.3e}, norm of the "
+            f"difference over the norm {errs[tag]['norm']:.3e} (tolerance "
+            f"{tol if tol else 'none: logged'}); largest in "
+            + ", ".join(f"{k} {by_key[k]:.2e}" for k in worst))
+        if tol and any(errs[tag][k] > tol[k] for k in tol):
+            failed.append(f"{label}: {tag} gradients")
+    return errs, failed
+
+
+def merged_tap_in_g(trainer):
+    """Hooks that turn ``ops.parity.MERGED_TAP`` on for G's forwards only
+    (autograd records the form, so G's backward follows it); returns the
+    handles to remove."""
+    from tartangan_torch.ops import parity as P
+
+    def on(*_):
+        P.MERGED_TAP = True
+
+    def off(*_):
+        P.MERGED_TAP = False
+    g = trainer.state.g
+    return [g.register_forward_pre_hook(on), g.register_forward_hook(off)]
+
+
+@contextlib.contextmanager
+def layout_copies():
+    """Within the block ``ops.parity.conv2d`` (and its users' imports of
+    it) copies its input to contiguous NCHW on the card too, as it does on
+    the CPU."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops import parity_conv as PC
+    conv2d = P.conv2d
+
+    def copying_conv2d(x, w, b=None, **kwargs):
+        return F.conv2d(x.contiguous(), w, b, **kwargs)
+    for mod in (P, G, PC):
+        mod.conv2d = copying_conv2d
+    try:
+        yield
+    finally:
+        for mod in (P, G, PC):
+            mod.conv2d = conv2d
+
+
+FORMS = "parity, FUSED_G off and plain K4/K5"
+MERGED = FORMS + ", G's parity convs merged-tap"
+
+
+def _step_grads_f64(plain, batch, z_d, z_g):
+    """The plain trainer's step in float64 from its current fresh state:
+    the witness. The attention runs its plain version, whose softmax stays
+    float32; at init its gamma is 0, so that reaches no other gradient."""
+    from tartangan_torch.train.cnn import make_cnn_train_step
+    set_attention_kernel(plain, False)
+    s, a = plain.state, plain.args
+    for model in (s.g, s.g_target, s.d):
+        model.double()
+    plain._train_step = make_cnn_train_step(
+        grad_penalty=a.grad_penalty, ema_factor=a.lr_target_g,
+        dtype=torch.float64, iters_d=a.iters_d, r1_interval=a.r1_interval)
+    return _step_grads(plain, batch, z_d.double(), z_g.double())
+
+
+def hold_parity(trainer, dev, batch, z_d, z_g):
+    """G's and D's forwards on the parity path against the plain ones on
+    the same weights, and each against the plain G in float64; then one
+    step each from the same state, batch and latents: the parity path with
+    the kernels, the same with FUSED_G off and the fused blocks on their
+    plain versions (and with merged-tap convs in G), the plain '512thin'
+    step (and with channels_last weights), each against the plain step in
+    float64 (see TOL_PARITY_STEP_GRAD). Returns the plain trainer."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    trainer.build_models()
+    init = {k: copy.deepcopy(m.state_dict()) for k, m in
+            (("g", trainer.state.g), ("d", trainer.state.d))}
+    steps = {}
+    set_fused_kernels(trainer, True)
+    steps["parity, kernels"] = _step_grads(trainer, batch, z_d, z_g,
+                                           plain_names=True)
+    for label in (FORMS, MERGED):
+        trainer.build_models()
+        set_fused_kernels(trainer, False)
+        hooks = merged_tap_in_g(trainer) if label == MERGED else []
+        steps[label] = _step_grads(trainer, batch, z_d, z_g,
+                                   plain_names=True)
+        for hook in hooks:
+            hook.remove()
+    set_fused_kernels(trainer, True)
+
+    plain = CNNTrainer.create_from_cli([
+        str(TRAIN_DIR / "tartans512.npy"),
+        "--config", "512thin", "--parity-blocks", "off", "--batch-size",
+        str(batch.shape[0]), "--dtype", "f32", "--device", "cuda",
+        "--run-id", "plain", "--output", str(PARITY_DIR / "out")])
+
+    def load_plain():
+        plain.build_models()
+        plain.state.g.load_state_dict(plain_state_from_fused(init["g"]))
+        plain.state.d.load_state_dict(init["d"])
+
+    load_plain()
+    trainer.build_models()
+    z = torch.randn((16, 256), generator=torch.Generator(device=dev)
+                    .manual_seed(13), device=dev)
+    with torch.no_grad():
+        out_par = trainer.state.g(z, train=True)
+        out_plain = plain.state.g(z, train=True)
+        logit_par = trainer.state.d(out_plain, train=True)
+        logit_plain = plain.state.d(out_plain, train=True)
+    torch.cuda.synchronize()
+    err = (out_par - out_plain).abs().max().item()
+    err_d = (logit_par - logit_plain).abs().max().item()
+    log(f"hold parity G (kernels) vs plain G, same weights, B16 forward: "
+        f"max_abs_err {err:.3e}; parity D vs plain D logits: max_abs_err "
+        f"{err_d:.3e} over max-abs {logit_plain.abs().max().item():.3e} "
+        f"(tolerance {TOL_G})")
+    torch.testing.assert_close(out_par, out_plain, **TOL_G)
+    torch.testing.assert_close(logit_par / logit_plain.abs().max(),
+                               logit_plain / logit_plain.abs().max(), **TOL_G)
+    # the same forward in float64 on the plain G, and each variant against
+    # it (logged)
+    outs = {"parity, kernels": out_par, "plain": out_plain}
+    for label in (FORMS, MERGED):
+        trainer.build_models()
+        set_fused_kernels(trainer, False)
+        hooks = merged_tap_in_g(trainer) if label == MERGED else []
+        with torch.no_grad():
+            outs[label] = trainer.state.g(z, train=True)
+        for hook in hooks:
+            hook.remove()
+    set_fused_kernels(trainer, True)
+    set_attention_kernel(plain, False)
+    plain.state.g.double()
+    with torch.no_grad():
+        out64 = plain.state.g(z.double(), train=True)
+    for label, out in outs.items():
+        diff = out.double() - out64
+        log(f"G forward B16, {label} vs float64: max abs {diff.abs().max():.3e}"
+            f", mean abs {diff.abs().mean():.3e}, mean {diff.mean():.3e}")
+    del outs, out64
+    load_plain()
+    steps["plain"] = _step_grads(plain, batch, z_d, z_g)
+    load_plain()
+    for model in (plain.state.g, plain.state.d):
+        model.to(memory_format=torch.channels_last)  # other cuDNN kernels
+    steps["plain, channels_last weights"] = _step_grads(plain, batch, z_d,
+                                                        z_g)
+    load_plain()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exact = _step_grads_f64(plain, batch, z_d, z_g)
+    log(f"the plain step in float64 took {time.perf_counter() - t0:.1f} s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    load_plain()
+    # the float32 steps without the kernels against float64: their spread
+    witnesses, failed = {}, []
+    for label, step in steps.items():
+        if label != "parity, kernels":
+            witnesses[label], f = _hold(f"witness: {label} vs float64",
+                                        step, exact)
+            failed += f
+    spread = {tag: {k: max(w[tag][k] for w in witnesses.values())
+                    for k in ("max", "norm")} for tag in ("g", "d")}
+    failed += _hold("parity, kernels vs float64", steps["parity, kernels"],
+                    exact, spread)[1]
+    # the direct comparisons, logged (held through float64 above) but for
+    # the losses
+    for label in (FORMS, "plain"):
+        failed += _hold(f"parity, kernels vs {label}",
+                        steps["parity, kernels"], steps[label])[1]
+    failed += hold_smooth_step(batch, z_d, z_g)
+    if failed:
+        raise AssertionError(f"parity holds failed: {failed}")
+    return plain
+
+
+def hold_smooth_step(batch, z_d, z_g):
+    """The plain '512thin' step with a smooth activation (elu), float32
+    against float64: without leaky-relu's kink the float32 step is held
+    within TOL_PARITY_STEP_GRAD of float64. Returns what failed."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    smooth = CNNTrainer.create_from_cli([
+        str(TRAIN_DIR / "tartans512.npy"),
+        "--config", "512thin", "--activation", "elu", "--batch-size",
+        str(batch.shape[0]), "--dtype", "f32", "--device", "cuda",
+        "--run-id", "elu", "--output", str(PARITY_DIR / "out")])
+    smooth.build_models()
+    step32 = _step_grads(smooth, batch, z_d, z_g)
+    smooth.build_models()
+    step64 = _step_grads_f64(smooth, batch, z_d, z_g)
+    zero = {tag: {"max": 0.0, "norm": 0.0} for tag in ("g", "d")}
+    return _hold("plain step with elu, float32 vs float64", step32, step64,
+                 zero)[1]
+
+
+def time_parity_step(trainer, plain, batch, z_d, z_g):
+    """The parity step and the plain step, in turns (host clock,
+    synchronized), and a third turn of the parity step with the layout
+    copies that ``ops.parity.conv2d`` makes on the CPU made on the card as
+    well (its cost); the parity step's peak memory and profile."""
+    def once(t, copies=False):
+        with layout_copies() if copies else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            t._train_step(t.state, batch, z_d, z_g)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    once(trainer)
+    once(trainer, copies=True)
+    once(plain)
+    par, pl, cp = [], [], []
+    for _ in range(3):
+        pl.append(once(plain))
+        par.append(once(trainer))
+        cp.append(once(trainer, copies=True))
+    log(f"time train step '512thin' B{batch.shape[0]} float32 (host clock, "
+        f"synchronized, 3 each in turns after warm-up): parity path "
+        f"(--parity-blocks on, FUSED_G, fused G blocks) median "
+        f"{statistics.median(par):.3f} ms {[round(t, 3) for t in par]}; "
+        f"plain path median {statistics.median(pl):.3f} ms "
+        f"{[round(t, 3) for t in pl]}; parity path with a contiguous NCHW "
+        f"copy before each of its convs median {statistics.median(cp):.3f} "
+        f"ms {[round(t, 3) for t in cp]}")
+    torch.cuda.reset_peak_memory_stats()
+    once(trainer)
+    log(f"parity train step peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_call("parity train step B64", lambda: once(trainer))
+
+
+def _conv_bound_ms(macs, nbytes):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * macs / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def time_parity_kernels(dev, launches, errs):
+    """K3 at the eight shapes of one '512thin' G forward and K4/K5 at the
+    two fused blocks' shapes: kernel, plain version, the library call (K3:
+    ``F.conv2d`` of the 3x3-packed form) and the bound; each summed over the
+    launches of one G forward for the kernels line."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv_plain,
+        merged_tap_conv,
+    )
+    gen = torch.Generator(device=dev).manual_seed(14)
+    # per kernel: kernel ms, plain ms, library ms, GFLOP, bytes
+    totals = {k: [0.0] * 5 for k in ("parity_conv", "gblock_a", "gblock_b")}
+
+    def add_times(name, t, macs, nbytes, lib=0.0):
+        tot = totals[name]
+        tot[0] += statistics.median([t[1], t[2]])
+        tot[1] += statistics.median([t[0], t[3]])
+        tot[2] += lib
+        tot[3] += macs
+        tot[4] += nbytes
+    for label, b, h, cin, cout in K3_SHAPES[:4]:
+        for mode in ("up", "full"):
+            wcin = cin if mode == "up" else cout
+            ci = wcin if mode == "up" else 4 * wcin
+            x = torch.randn(b, h, h, ci, device=dev, generator=gen)
+            w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+            w3 = (P.pack_up_conv if mode == "up" else P.pack_full_conv)(w)
+            xc = x.permute(0, 3, 1, 2)
+            it = 5 if h >= 128 else 20
+            t = [cuda_ms(lambda: fused_parity_conv_plain(x, w, cout, mode),
+                         iters=it),
+                 cuda_ms(lambda: merged_tap_conv(x, w, cout, mode), iters=it),
+                 cuda_ms(lambda: merged_tap_conv(x, w, cout, mode), iters=it),
+                 cuda_ms(lambda: fused_parity_conv_plain(x, w, cout, mode),
+                         iters=it)]
+            lib = cuda_ms(lambda: F.conv2d(xc, w3, padding=1), iters=it)
+            taps = 16 * wcin if mode == "up" else 36 * wcin
+            macs = b * h * h * taps * cout
+            nbytes = 4 * (x.numel() + b * h * h * 4 * cout + w.numel())
+            bound = _conv_bound_ms(macs, nbytes)
+            log(f"time parity_conv '{mode}' {label} x {tuple(x.shape)}: "
+                f"kernel {t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f}"
+                f" ms, F.conv2d 3x3-packed {lib:.4f} ms, bound {bound[0]:.4f} "
+                f"ms ({bound[1]}, {2 * macs / 1e9:.2f} GFLOP)")
+            add_times("parity_conv", t, macs, nbytes, lib)
+            del x, xc
+    for label, b, h, cin, cout in GBLOCK_SHAPES[:2]:
+        p = gblock_params(cin, cout, dev, gen)
+        x = torch.randn(b, h, h, cin, device=dev, generator=gen)
+        m1, v1 = G._moments(x)
+        y1p, st = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                   p["b1"])
+        n = 4 * b * h * h
+        m2 = st.reshape(2, 4, cout).sum(1)[0] / n
+        v2 = st.reshape(2, 4, cout).sum(1)[1] / n - m2 ** 2
+        args_a = (x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        args_b = (y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],
+                  p["wp"], p["bp"])
+        pos = b * h * h
+        # the shortcut's 4*Cin*Cout MACs a position count only with a
+        # projection; the identity (both fused blocks) is an add of x, whose
+        # bytes are counted
+        short = 0 if torch.equal(p["wp"], torch.eye(cin, device=dev)) \
+            else 4 * cin
+        for name, kern, plain, args, macs, nbytes in (
+                ("gblock_a", G.gblock_a, G.gblock_a_plain, args_a,
+                 pos * 16 * cin * cout, 4 * (x.numel() + y1p.numel())),
+                ("gblock_b", G.gblock_b, G.gblock_b_plain, args_b,
+                 pos * (36 * cout + short) * cout,
+                 4 * (2 * y1p.numel() + x.numel()))):
+            t = [cuda_ms(lambda: plain(*args)), cuda_ms(lambda: kern(*args)),
+                 cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))]
+            bound = _conv_bound_ms(macs, nbytes)
+            log(f"time {name} {label} x {tuple(x.shape)} Cout {cout}: kernel "
+                f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms, "
+                f"bound {bound[0]:.4f} ms ({bound[1]}, {2 * macs / 1e9:.2f} "
+                f"GFLOP)")
+            add_times(name, t, macs, nbytes)
+    records = []
+    for name, src, replaces in (
+            ("parity_conv", "parity_conv.cu",
+             "tartangan_tpu/ops/pallas/parity_conv.py:99"),
+            ("gblock_a", "gblock.cu", "tartangan_tpu/ops/pallas/gblock.py:196"),
+            ("gblock_b", "gblock.cu",
+             "tartangan_tpu/ops/pallas/gblock.py:234")):
+        ms, plain_ms, lib, macs, nbytes = totals[name]
+        bound_ms, bound_by = _conv_bound_ms(macs, nbytes)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"tartangan_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib if name == "parity_conv" else None})
+        log(f"kernels line {name}: summed over the launches of one G "
+            f"forward: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms" + (f", F.conv2d {lib:.4f} ms"
+                                    if name == "parity_conv" else ""))
+    return records
+
+
 def time_attention(dev, launches, errs):
     """K1 and K2 at the training shapes: kernel, plain version, the
     library call and the bound; the records of the kernels line."""
@@ -731,6 +1482,7 @@ def main():
                     log(f"  ptxas {name}: {line.strip()}")
 
         errs = phase_kernels(dev)
+        perrs = phase_parity_kernels(dev)
         app, serve_launches = phase_serve()
         check_generator(app)
         phase_times(app, dev)
@@ -744,6 +1496,20 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         records = time_attention(dev, launches, errs)
+
+        par, par_launches, _ = phase_parity_train(TRAIN_DIR / "tartans512.npy")
+        log(f"parity path launches {par_launches} (the kernels line counts "
+            f"K3-K5 on this path)")
+        batch = torch.from_numpy(par.dataset.images[:64]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        z_d = torch.randn((1, 64, 256), generator=gen, device=dev)
+        z_g = torch.randn((64, 256), generator=gen, device=dev)
+        plain = hold_parity(par, dev, batch, z_d, z_g)
+        time_parity_step(par, plain, batch, z_d, z_g)
+        del par, plain, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        records += time_parity_kernels(dev, par_launches, perrs)
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

@@ -13,6 +13,12 @@ path rename plus a layout change per leaf:
   ``weight`` (out, in); attention ``theta/phi/g/o`` are (1, 1, Cin, Cout)
   convs without bias; ``gamma`` is a 0-d array.
 
+The fused generator block keeps the reference's flat names in both trees:
+``conv1_kernel``, ``conv2_kernel``, ``project_kernel`` (HWIO <-> OIHW, the
+name unchanged), ``bn1_scale`` etc. as they are, and the ``batch_stats``
+``bn1_mean``, ``bn1_var``, ``bn2_mean``, ``bn2_var`` as buffers of those
+names. The parity blocks have the plain blocks' trees.
+
 The same mapping covers the discriminator (``input_block``, ``blocks_N``,
 ``output_block/Dense_0``, ``project_input``) and the Adam state: flax's
 serializer writes optax's ``adam`` state as ``{"0": {"count": int32,
@@ -60,10 +66,12 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
             if name == "kernel":
                 t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
                 name = "weight"
+            elif name.endswith("_kernel"):  # the fused block's flat convs
+                t = t.permute(3, 2, 0, 1)
             elif name == "scale":
                 name = "weight"
             elif collection == "batch_stats":
-                name = _STATS[name]
+                name = _STATS.get(name, name)
             state[".".join(parents + [name])] = t.contiguous()
     return state
 
@@ -98,11 +106,15 @@ def _to_tree(named_tensors) -> dict:
         collection = "params"
         if name in stats:
             collection, name = "batch_stats", stats[name]
+        elif name.endswith(("_mean", "_var")):  # the fused block's stats
+            collection = "batch_stats"
         elif name == "weight" and parents and parents[-1] == _BN:
             name = "scale"
         elif name == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
             name = "kernel"
+        elif name.endswith("_kernel"):
+            arr = arr.transpose(2, 3, 1, 0)
         node = tree[collection]
         for part in path:
             node = node.setdefault(part, {})

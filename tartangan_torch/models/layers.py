@@ -32,13 +32,13 @@ class BatchNorm(nn.Module):
     updated only while ``update_stats`` is set (``update_batch_stats``
     sets it for the train step): ``ra = 0.9 ra + 0.1 batch`` for the mean
     and the biased variance, flax's momentum 0.9 (torch's 0.1), in float32
-    and outside autograd. ``F.batch_norm``'s own update would store the
-    unbiased variance, so it is not used. Serving and sampling run
-    train-mode forwards that leave the statistics untouched, as the JAX
-    package discards its batch-stat update there. In eval mode it
+    (float64 for a float64 input) and outside autograd. ``F.batch_norm``'s
+    own update would store the unbiased variance, so it is not used.
+    Serving and sampling run train-mode forwards that leave the statistics
+    untouched, as the JAX package discards its batch-stat update there. In eval mode it
     normalizes with the running statistics. Statistics and normalization
-    are computed in float32 and the result is cast back to the input's
-    dtype before the activation.
+    are computed in float32 (float64 for a float64 input) and the result is
+    cast back to the input's dtype before the activation.
     """
 
     momentum = 0.9  # flax convention: ra = momentum * ra + (1 - m) * batch
@@ -53,7 +53,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             if self.update_stats:
                 with torch.no_grad():
@@ -74,11 +74,13 @@ class BatchNorm(nn.Module):
 
 @contextlib.contextmanager
 def update_batch_stats(*modules: nn.Module):
-    """Within the block, every train-mode ``BatchNorm`` forward in
-    ``modules`` updates its running statistics (flax's ``mutable=
+    """Within the block, every train-mode forward of a module in
+    ``modules`` that keeps running statistics (an ``update_stats``
+    attribute: ``BatchNorm``, the parity blocks' folded BatchNorm, the
+    fused generator block) updates them (flax's ``mutable=
     ["batch_stats"]``)."""
     bns = [m for mod in modules for m in mod.modules()
-           if isinstance(m, BatchNorm)]
+           if hasattr(m, "update_stats")]
     for bn in bns:
         bn.update_stats = True
     try:

@@ -3,8 +3,9 @@
 Each source under ``tartangan_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. Libraries go to ``build/torch_kernels/``
-at the repo root, named by a hash of the source and the flags, so a changed
-source is rebuilt at its next use. Nothing is built at import time.
+at the repo root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source is rebuilt at its next
+use. Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"attention_fwd": "attention_fwd.cu",
-           "attention_bwd": "attention_bwd.cu"}
+           "attention_bwd": "attention_bwd.cu",
+           "parity_conv": "parity_conv.cu",
+           "gblock": "gblock.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +40,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -16,18 +16,27 @@ from torch import nn
 
 
 @torch.no_grad()
+def default_init_(weight: torch.Tensor, bias, generator: torch.Generator):
+    """torch's default ``nn.Conv2d`` / ``nn.Linear`` init of one weight
+    (out first) and its bias (or None), drawn from ``generator``."""
+    nn.init.kaiming_uniform_(weight, a=math.sqrt(5), generator=generator)
+    if bias is not None:
+        bound = 1.0 / math.sqrt(max(weight[0].numel(), 1))
+        nn.init.uniform_(bias, -bound, bound, generator=generator)
+
+
+@torch.no_grad()
 def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every conv / linear parameter of ``module`` with torch's
-    default init from ``generator``, in module order, and zero every
+    default init from ``generator``, in module order (a module with an
+    ``init_parameters_(generator)`` method draws its own), and zero every
     attention ``gamma``."""
     for m in module.modules():
+        init = getattr(m, "init_parameters_", None)
+        if init is not None:  # a module with flat parameters of its own
+            init(generator)
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
-                                     generator=generator)
-            if m.bias is not None:
-                fan_in = m.weight[0].numel()
-                bound = 1.0 / math.sqrt(max(fan_in, 1))
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            default_init_(m.weight, m.bias, generator)
         gamma = getattr(m, "gamma", None)
         if isinstance(gamma, nn.Parameter):
             gamma.zero_()

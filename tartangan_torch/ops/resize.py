@@ -2,10 +2,14 @@
 
 Counterparts of ``tartangan_tpu/ops/resize.py`` (NHWC there): the nearest
 2x upsample of the G blocks, the 2x2 max pool of the self-attention K/V,
-and the D blocks' 2x2 average pool and bilinear half-size shortcut.
+the D blocks' 2x2 average pool and bilinear half-size shortcut, and that
+shortcut taken from a parity stack (``ops/parity.py`` layout).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,3 +40,62 @@ def downsample_bilinear_half(x: torch.Tensor,
     _, _, h, w = x.shape
     return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
                          align_corners=align_corners)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_interp_matrix(n_in: int, n_out: int,
+                          align_corners: bool) -> np.ndarray:
+    """Dense (n_out, n_in) 1-D linear interpolation matrix, as the JAX
+    package builds it (``ops/resize.py:26-48``): with align_corners output
+    i samples input coordinate i * (n_in - 1) / (n_out - 1), without it
+    half-pixel centres clamped to the edges."""
+    a = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_in == 1:
+        a[:, 0] = 1.0
+        return a
+    for i in range(n_out):
+        if align_corners:
+            src = i * (n_in - 1) / max(n_out - 1, 1)
+        else:
+            src = (i + 0.5) * n_in / n_out - 0.5
+            src = min(max(src, 0.0), n_in - 1)
+        lo = int(np.floor(src))
+        hi = min(lo + 1, n_in - 1)
+        frac = src - lo
+        a[i, lo] += 1.0 - frac
+        a[i, hi] += frac
+    return a
+
+
+def _interp(n_in, n_out, align_corners, like):
+    return torch.as_tensor(_linear_interp_matrix(n_in, n_out, align_corners),
+                           dtype=like.dtype, device=like.device)
+
+
+def downsample_bilinear_half_parity(xp: torch.Tensor, c: int,
+                                    align_corners: bool = True) -> torch.Tensor:
+    """Bilinear 0.5x of a full-resolution tensor given as its parity stack
+    (B, 4C, H/2, W/2) -> (B, C, H/2, W/2), without building the
+    full-resolution tensor: the interpolation matrix's column k = 2m + p
+    splits into (coarse index m, parity p)."""
+    b, _, h2, w2 = xp.shape
+    x6 = xp.reshape(b, 2, 2, c, h2, w2)
+    ah = _interp(2 * h2, h2, align_corners, xp).reshape(h2, h2, 2)
+    aw = _interp(2 * w2, w2, align_corners, xp).reshape(w2, w2, 2)
+    y = torch.einsum("imp,bpxcmw->bxciw", ah, x6)
+    return torch.einsum("jwx,bxciw->bcij", aw, y)
+
+
+def downsample_bilinear_half_parity_to_parity(
+        xp: torch.Tensor, c: int, align_corners: bool = True) -> torch.Tensor:
+    """Bilinear 0.5x from a parity stack to a parity stack: (B, 4C, H/2, W/2)
+    of a full-resolution (H, W) tensor -> (B, 4C, H/4, W/4) of its half-size
+    downsample; both the row index 2n + q and the column index 2m + p of the
+    interpolation matrix split by parity."""
+    b, _, h2, w2 = xp.shape
+    x6 = xp.reshape(b, 2, 2, c, h2, w2)
+    ah = _interp(2 * h2, h2, align_corners, xp).reshape(h2 // 2, 2, h2, 2)
+    aw = _interp(2 * w2, w2, align_corners, xp).reshape(w2 // 2, 2, w2, 2)
+    y = torch.einsum("nqmp,bpxcmw->bqxcnw", ah, x6)
+    y = torch.einsum("jQwx,bqxcnw->bqQcnj", aw, y)
+    return y.reshape(b, 4 * c, h2 // 2, w2 // 2)

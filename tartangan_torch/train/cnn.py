@@ -5,10 +5,12 @@ Counterpart of ``tartangan_tpu/train/cnn.py``: ``make_cnn_train_step``
 (:35-152) and ``CNNTrainer`` (:155-260). The JAX step is one jitted
 function of an immutable state; here it runs eagerly and updates the
 state's modules and optimizers in place. The attention of G and D runs
-through the CUDA kernels K1 (forward) and K2 (backward) on the card.
+through the CUDA kernels K1 (forward) and K2 (backward) on the card;
+``--parity-blocks on`` builds the thin tower blocks in the parity domain,
+whose G convs run through K3 under ``ops.parity.FUSED_G``.
 
 Usage: python -m tartangan_torch.train.cnn DATA.npz --config 512thin
-       --batch-size 64 [--device cuda|cpu]
+       --batch-size 64 [--parity-blocks on] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -128,7 +130,9 @@ class CNNTrainer(Trainer):
         return Generator(
             self.gan_config,
             input_factory=F.g_input_factory(args.g_base, args.activation),
-            block_factory=F.g_block_factory(args.norm, args.activation),
+            block_factory=F.g_block_factory(
+                args.norm, args.activation,
+                parity=F.resolve_parity(args.parity_blocks)),
             output_factory=F.g_output_factory(args.norm, args.activation),
         )
 
@@ -137,7 +141,9 @@ class CNNTrainer(Trainer):
         return Discriminator(
             self.gan_config,
             input_factory=F.d_input_factory(),
-            block_factory=F.d_block_factory(args.norm, args.activation),
+            block_factory=F.d_block_factory(
+                args.norm, args.activation,
+                parity=F.resolve_parity(args.parity_blocks)),
             output_factory=F.d_output_factory(args.norm, args.activation),
         )
 

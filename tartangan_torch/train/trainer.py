@@ -29,7 +29,6 @@ import torch
 from ..convert import adam_from_flax, adam_to_flax, from_flax, to_flax
 from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
-from ..models.factories import resolve_parity
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
 from .components.container import ComponentContainer
@@ -45,8 +44,6 @@ _UNPORTED = {
                     "data parallelism over several devices"),
     "tp": (lambda a: a.tp > 1, "tensor parallelism"),
     "remat": (lambda a: a.remat, "rematerialization"),
-    "parity_blocks": (lambda a: resolve_parity(a.parity_blocks),
-                      "the parity block forms"),
     "fid": (lambda a: a.fid, "the FID component"),
     "metrics_collector": (lambda a: a.metrics_collector is not None,
                           "the metrics collectors"),
@@ -352,8 +349,8 @@ class Trainer:
                             "yet)")
         p.add_argument("--parity-blocks", default="auto",
                        choices=("auto", "on", "off"),
-                       help="Parity-domain tower blocks (not ported yet; "
-                            "auto = off here)")
+                       help="Parity-domain tower blocks; auto = off here "
+                            "(the JAX package's rule off a TPU)")
         p.add_argument("--steps-per-call", type=int, default=1,
                        help="Train steps per call (only 1 is ported)")
         p.add_argument("--device-data", action="store_true",

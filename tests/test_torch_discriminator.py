@@ -197,10 +197,13 @@ def test_512thin_discriminator_layout():
 
 
 def test_parity_blocks_resolve_off():
+    """'auto' is off, the JAX package's rule off a TPU; 'on' gives the
+    parity block forms."""
     assert F.resolve_parity("auto") is False
     assert F.resolve_parity("off") is False
-    with pytest.raises(NotImplementedError):
-        F.resolve_parity("on")
+    assert F.resolve_parity("on") is True
+    with pytest.raises(ValueError):
+        F.resolve_parity("sometimes")
 
 
 @pytest.mark.parametrize("steps", [1, 2])

@@ -193,6 +193,45 @@ def test_train_step_matches_jax(rng, monkeypatch, r1, iters_d):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
+def test_float64_step_stays_float64(rng):
+    """A float64 step (``chip_smoke.py``'s witness on the card) keeps
+    BatchNorm, the losses and R1 in float64, and agrees with the float32
+    step: losses 1e-4 relative, gradients 1e-4 of their max-abs. D's
+    learning rate is 0, so both G steps see one D."""
+    from tartangan_torch.models.attention import SelfAttention2d
+    _, _, _, _, js = _jax_state(rng)
+    batch = torch.from_numpy(rng.integers(0, 256, (B, 16, 16, 3),
+                                          dtype=np.uint8))
+    z_d = torch.from_numpy(rng.standard_normal((1, B, CFG.latent_dims)))
+    z_g = torch.from_numpy(rng.standard_normal((B, CFG.latent_dims)))
+    runs = []
+    for dtype in (torch.float32, torch.float64):
+        ts = _torch_state(js)
+        for model in (ts.g, ts.g_target, ts.d):
+            model.to(dtype)
+            for m in model.modules():
+                if isinstance(m, SelfAttention2d):
+                    m.use_kernel = False  # K1/K2 take float32 and bfloat16
+        for group in ts.opt_d.param_groups:
+            group["lr"] = 0.0
+        step = make_cnn_train_step(grad_penalty=5.0, ema_factor=EMA,
+                                   dtype=dtype)
+        metrics = step(ts, batch, z_d.to(dtype), z_g.to(dtype))
+        assert all(v.dtype == dtype for v in metrics.values())
+        grads = [ts.opt_g.state[p]["exp_avg"] for p in ts.g.parameters()] \
+            + [ts.opt_d.state[p]["exp_avg"] for p in ts.d.parameters()]
+        assert all(t.dtype == dtype for t in grads)
+        runs.append((metrics, grads))
+    (m32, g32), (m64, g64) = runs
+    for name in m64:
+        np.testing.assert_allclose(float(m32[name]), float(m64[name]),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    scale = max(float(t.abs().max()) for t in g64)
+    for a, b in zip(g32, g64):
+        np.testing.assert_allclose(a.double().numpy() / scale,
+                                   b.numpy() / scale, rtol=0, atol=1e-4)
+
+
 # ----------------------------------------------------------- the trainer
 def _argv(archive, out, *extra):
     return [archive, "--config", "16", "--batch-size", "8", "--epochs", "1",
@@ -254,7 +293,7 @@ def test_trainer_losses_finite_and_stats_move(tiny_archive, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--device-data"], ["--steps-per-call", "2"], ["--num-devices", "2"],
-    ["--tp", "2"], ["--remat"], ["--parity-blocks", "on"], ["--fid"],
+    ["--tp", "2"], ["--remat"], ["--fid"],
     ["--metrics-collector", "tensorboard"], ["--profile-dir", "x"],
     ["--timing"], ["--checkpoint-format", "orbax"], ["--dtype", "bf16"],
     ["--activation", "selu"]])
