@@ -16,7 +16,8 @@ printing a result:
    K2 backward, the plain vector-Jacobian product beneath) against autograd
    through the plain attention, to second order, at the '512thin'
    discriminator's shape. Then the parity kernels: K3 (merged-tap parity
-   conv, both modes) at the eight '512thin' G shapes and a ragged one, K4
+   conv, both modes, with the bias) at the eight '512thin' G shapes and
+   two ragged ones (one non-square across both tile edges), K4
    and K5 (the fused G block) at both fused blocks' shapes and one with a
    projection, K4's sums too, and the two parity autograd Functions'
    gradients against autograd through the plain forms. TF32 is off for
@@ -56,7 +57,8 @@ printing a result:
    step and the plain step in turns (and the parity step with a layout
    copy before each conv), with a profile and the peak memory; then K3, K4
    and K5 at the path's shapes (kernel, plain, ``F.conv2d`` of the
-   3x3-packed form for K3, and the bound).
+   3x3-packed form with the bias for K3, and the bound; for K3 also the
+   share of the bound and the ratio to ``F.conv2d``).
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K3-K5's times summed over the launches of one G forward),
@@ -303,13 +305,16 @@ def check_double_backward(dev):
         f"over max-abs: {', '.join(errs)} (tolerance 1e-4)")
 
 
-# K3 at the '512thin' G parity blocks' shapes (B 64; x is (B, H, H, Ci),
-# Ci = cin for 'up', 4*cin for 'full'), and a ragged one
-K3_SHAPES = [("block 3 (32x32)", 64, 32, 128, 64),
-             ("block 5 (64x64)", 64, 64, 64, 32),
-             ("block 6 (128x128)", 64, 128, 32, 16),
-             ("block 7 (256x256)", 64, 256, 16, 8),
-             ("ragged", 3, 7, 5, 7)]
+# K3 at the '512thin' G parity blocks' shapes (B, H, W, cin, cout; x is
+# (B, H, W, Ci), Ci = cin for 'up', 4*cin for 'full'), then ragged ones:
+# smaller than a tile, and non-square across both tile edges with a cout
+# that is not a multiple of 4
+K3_SHAPES = [("block 3 (32x32)", 64, 32, 32, 128, 64),
+             ("block 5 (64x64)", 64, 64, 64, 64, 32),
+             ("block 6 (128x128)", 64, 128, 128, 32, 16),
+             ("block 7 (256x256)", 64, 256, 256, 16, 8),
+             ("ragged", 3, 7, 7, 5, 7),
+             ("ragged non-square", 2, 37, 19, 5, 7)]
 # K4/K5 at the '512thin' fused blocks' shapes (x (B, H, H, Cin) -> Cout),
 # identity shortcut, and one with a projection
 GBLOCK_SHAPES = [("block 1 (8x8)", 64, 8, 128, 128),
@@ -364,14 +369,15 @@ def phase_parity_kernels(dev):
     )
     gen = torch.Generator(device=dev).manual_seed(11)
     worst = {"parity_conv": 0.0, "gblock_a": 0.0, "gblock_b": 0.0}
-    for label, b, h, cin, cout in K3_SHAPES:
+    for label, b, h, wd, cin, cout in K3_SHAPES:
         for mode in ("up", "full"):
             wcin = cin if mode == "up" else cout
             ci = wcin if mode == "up" else 4 * wcin
-            x = torch.randn(b, h, h, ci, device=dev, generator=gen)
+            x = torch.randn(b, h, wd, ci, device=dev, generator=gen)
             w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
-            out = merged_tap_conv(x, w, cout, mode)
-            ref = fused_parity_conv_plain(x, w, cout, mode)
+            bias = torch.randn(cout, device=dev, generator=gen)
+            out = merged_tap_conv(x, w, cout, mode, bias=bias)
+            ref = fused_parity_conv_plain(x, w, cout, mode, bias)
             torch.cuda.synchronize()
             err, scale = _scaled_err(out, ref)
             log(f"kernel parity_conv '{mode}' {label} x {tuple(x.shape)} -> "
@@ -379,7 +385,7 @@ def phase_parity_kernels(dev):
                 f"{err:.3e} of the plain output's max-abs (tolerance "
                 f"{TOL_PARITY} on the latter)")
             _assert_scaled(f"parity_conv {mode} {label}", out, ref)
-            if label != "ragged":
+            if not label.startswith("ragged"):
                 worst["parity_conv"] = max(worst["parity_conv"],
                                            err * scale.item())
             del x, out, ref
@@ -1293,8 +1299,9 @@ def _conv_bound_ms(macs, nbytes):
 def time_parity_kernels(dev, launches, errs):
     """K3 at the eight shapes of one '512thin' G forward and K4/K5 at the
     two fused blocks' shapes: kernel, plain version, the library call (K3:
-    ``F.conv2d`` of the 3x3-packed form) and the bound; each summed over the
-    launches of one G forward for the kernels line."""
+    ``F.conv2d`` of the 3x3-packed form with the bias, as K3 adds it) and
+    the bound; each summed over the launches of one G forward for the
+    kernels line."""
     import torch.nn.functional as F
 
     from tartangan_torch.ops import gblock as G
@@ -1314,30 +1321,38 @@ def time_parity_kernels(dev, launches, errs):
         tot[2] += lib
         tot[3] += macs
         tot[4] += nbytes
-    for label, b, h, cin, cout in K3_SHAPES[:4]:
+    for label, b, h, wd, cin, cout in K3_SHAPES[:4]:
         for mode in ("up", "full"):
             wcin = cin if mode == "up" else cout
             ci = wcin if mode == "up" else 4 * wcin
-            x = torch.randn(b, h, h, ci, device=dev, generator=gen)
+            x = torch.randn(b, h, wd, ci, device=dev, generator=gen)
             w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+            bias = torch.randn(cout, device=dev, generator=gen)
             w3 = (P.pack_up_conv if mode == "up" else P.pack_full_conv)(w)
+            b4 = bias.repeat(4)
             xc = x.permute(0, 3, 1, 2)
             it = 5 if h >= 128 else 20
-            t = [cuda_ms(lambda: fused_parity_conv_plain(x, w, cout, mode),
-                         iters=it),
-                 cuda_ms(lambda: merged_tap_conv(x, w, cout, mode), iters=it),
-                 cuda_ms(lambda: merged_tap_conv(x, w, cout, mode), iters=it),
-                 cuda_ms(lambda: fused_parity_conv_plain(x, w, cout, mode),
-                         iters=it)]
-            lib = cuda_ms(lambda: F.conv2d(xc, w3, padding=1), iters=it)
+
+            def kern():
+                return merged_tap_conv(x, w, cout, mode, bias=bias)
+
+            def plain():
+                return fused_parity_conv_plain(x, w, cout, mode, bias)
+            t = [cuda_ms(plain, iters=it), cuda_ms(kern, iters=it),
+                 cuda_ms(kern, iters=it), cuda_ms(plain, iters=it)]
+            lib = cuda_ms(lambda: F.conv2d(xc, w3, b4, padding=1), iters=it)
             taps = 16 * wcin if mode == "up" else 36 * wcin
-            macs = b * h * h * taps * cout
-            nbytes = 4 * (x.numel() + b * h * h * 4 * cout + w.numel())
+            macs = b * h * wd * taps * cout
+            nbytes = 4 * (x.numel() + b * h * wd * 4 * cout + w.numel()
+                          + cout)
             bound = _conv_bound_ms(macs, nbytes)
+            ms = statistics.median([t[1], t[2]])
             log(f"time parity_conv '{mode}' {label} x {tuple(x.shape)}: "
                 f"kernel {t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f}"
-                f" ms, F.conv2d 3x3-packed {lib:.4f} ms, bound {bound[0]:.4f} "
-                f"ms ({bound[1]}, {2 * macs / 1e9:.2f} GFLOP)")
+                f" ms, F.conv2d 3x3-packed + bias {lib:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}, {2 * macs / 1e9:.2f} GFLOP);"
+                f" kernel at {100 * bound[0] / ms:.1f} % of the bound, "
+                f"{ms / lib:.3f}x F.conv2d's time")
             add_times("parity_conv", t, macs, nbytes, lib)
             del x, xc
     for label, b, h, cin, cout in GBLOCK_SHAPES[:2]:

@@ -1,5 +1,6 @@
 // Merged-tap parity convolution as an implicit GEMM, float32, for Hopper
-// (sm_90a). Shared by csrc/parity_conv.cu (K3) and csrc/gblock.cu (K4, K5).
+// (sm_90a): the core of csrc/gblock.cu (K4, K5). K3 (csrc/parity_conv.cu)
+// has its own halo-tile kernel and does not use it.
 //
 // The function: for an NHWC input x (B, H, W, Cx), output parity
 // q = 2*qy + qx and channel n < co,
@@ -20,10 +21,11 @@
 // a bias is added per output channel, and per-CTA sums and sums of squares
 // of the stored outputs are written for a deterministic reduction.
 //
-// What bounds it on the card: at the '512thin' shapes each output costs
-// 4*Cx (up) or 9*Cx/4 (full) FMAs against one read of x and one write of
-// the output, i.e. 16..150 flop per byte: compute-bound on CUDA-core f32
-// (67 TFLOP/s) at the 32x32..128x128 shapes, near the ridge at 256x256.
+// What bounds it on the card: at the '512thin' fused blocks' shapes (K4:
+// 8x8 and 16x16 inputs, Cx 128 -> 4*128; K5: Cx 4*128 plus the shortcut)
+// each output costs 4*Cx (K4) or 9*Cx/4 + Cin (K5) FMAs against one read
+// of the inputs and one write of the output, well over 100 flop per byte:
+// compute-bound on CUDA-core f32 (67 TFLOP/s).
 // The design is the classic register-tiled SGEMM: M = B*H*W output
 // positions, N = one parity's co channels, K = the segments' channels in
 // chunks of 8. A CTA of 256 threads owns BM positions x BN channels of one

@@ -11,9 +11,9 @@ as a (B, H, W, 4*cout) parity stack; ``mode='full'`` takes a parity stack
 its (cout,) bias.
 
 ``fused_parity_conv`` is a ``torch.autograd.Function``: its forward is the
-kernel (``merged_tap_conv``) plus ``tile(b, 4)``; its backward is the
-vector-Jacobian product of the 3x3-packed form (``_reference_form``), as in
-the reference. That is first order only, which is why only the generator's
+kernel (``merged_tap_conv``, which adds ``tile(b, 4)`` as it stores); its
+backward is the vector-Jacobian product of the 3x3-packed form
+(``_reference_form``), as in the reference. That is first order only, which is why only the generator's
 parity blocks use it (the R1 penalty differentiates D twice).
 
 For CUDA tensors ``merged_tap_conv`` launches the kernel or raises; for CPU
@@ -41,7 +41,7 @@ _COUNT_LOCK = threading.Lock()
 _MODES = ("up", "full")
 
 
-def _check(x, w_raw, cout, mode):
+def _check(x, w_raw, cout, mode, bias):
     if mode not in _MODES:
         raise ValueError(f"mode must be 'up' or 'full', got {mode!r}")
     if x.dim() != 4 or w_raw.dim() != 4 or w_raw.shape[2:] != (3, 3):
@@ -52,11 +52,14 @@ def _check(x, w_raw, cout, mode):
                                                 else cin):
         raise ValueError(f"merged-tap conv '{mode}': x {tuple(x.shape)} does "
                          f"not fit the weight {tuple(w_raw.shape)}")
-    if x.dtype != torch.float32 or w_raw.dtype != torch.float32:
+    ts = (x, w_raw) if bias is None else (x, w_raw, bias)
+    if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("the merged-tap parity conv takes float32, got "
-                        f"{x.dtype}, {w_raw.dtype}")
-    if x.device != w_raw.device:
-        raise ValueError("x and the weight must be on one device")
+                        f"{sorted({str(t.dtype) for t in ts})}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("x, the weight and the bias must be on one device")
+    if bias is not None and bias.shape != (cout,):
+        raise ValueError(f"the bias must be ({cout},), got {tuple(bias.shape)}")
 
 
 def _pack2(w_raw, mode):
@@ -64,10 +67,11 @@ def _pack2(w_raw, mode):
     return (pack_up_conv2 if mode == "up" else pack_full_conv2)(w_raw)
 
 
-def fused_parity_conv_plain(x, w_raw, cout, mode):
+def fused_parity_conv_plain(x, w_raw, cout, mode, bias=None):
     """The kernel's function in plain torch ops: ``conv_parity2`` with the
-    2x2 packers, NHWC in and out, no bias."""
-    y = conv_parity2(x.permute(0, 3, 1, 2), _pack2(w_raw, mode), cout)
+    2x2 packers, NHWC in and out, plus ``tile(bias, 4)`` if given."""
+    b4 = None if bias is None else bias.repeat(4)
+    y = conv_parity2(x.permute(0, 3, 1, 2), _pack2(w_raw, mode), cout, b4)
     return y.permute(0, 2, 3, 1)
 
 
@@ -76,26 +80,29 @@ def _count(fn):
         fn.launches += 1
 
 
-def merged_tap_conv(x, w_raw, cout, mode):
-    """(B, H, W, 4*cout) merged-tap parity conv of NHWC ``x``, no bias: K3
-    for CUDA tensors, ``fused_parity_conv_plain`` for CPU tensors."""
-    _check(x, w_raw, cout, mode)
+def merged_tap_conv(x, w_raw, cout, mode, bias=None):
+    """(B, H, W, 4*cout) merged-tap parity conv of NHWC ``x`` plus
+    ``tile(bias, 4)`` if given: K3 for CUDA tensors (one launch, the bias
+    added as it stores), ``fused_parity_conv_plain`` for CPU tensors."""
+    _check(x, w_raw, cout, mode, bias)
     if x.device.type == "cpu":
-        return fused_parity_conv_plain(x, w_raw, cout, mode)
+        return fused_parity_conv_plain(x, w_raw, cout, mode, bias)
     if x.device.type != "cuda":
         raise ValueError(f"merged_tap_conv runs on cuda or cpu, not {x.device}")
     b, h, w, ci = x.shape
     x = x.contiguous()
     # (4*cout, Ci, 2, 2) OIHW -> (2, 2, Ci, 4*cout), the kernel's layout
     w2 = _pack2(w_raw.detach(), mode).permute(2, 3, 1, 0).contiguous()
+    bias = None if bias is None else bias.detach().contiguous()
     out = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
     fn = build.load("parity_conv").tt_parity_conv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, h, w, ci,
-                 cout, int(mode == "full"), stream)
+        err = fn(x.data_ptr(), w2.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 b, h, w, ci, cout, int(mode == "full"), stream)
     if err != 0:
         raise RuntimeError(f"parity_conv kernel launch failed: cudaError {err}")
     _count(merged_tap_conv)
@@ -115,7 +122,7 @@ class _FusedParityConv(torch.autograd.Function):
     def forward(ctx, x, w_raw, b, cout, mode):
         ctx.save_for_backward(x, w_raw, b)
         ctx.cout, ctx.mode = cout, mode
-        return merged_tap_conv(x, w_raw, cout, mode) + b.repeat(4)
+        return merged_tap_conv(x, w_raw, cout, mode, bias=b)
 
     @staticmethod
     def backward(ctx, g):

@@ -141,30 +141,53 @@ def _scaled_close(out, ref):
     torch.testing.assert_close(out / scale, ref / scale, **TOL_PARITY)
 
 
+def _k3_case(dev, mode, b, h, w, cin, cout, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ci = cin if mode == "up" else 4 * cin
+    x = torch.randn(b, h, w, ci, device=dev, generator=gen)
+    wt = 0.1 * torch.randn(cout, cin, 3, 3, device=dev, generator=gen)
+    bias = torch.randn(cout, device=dev, generator=gen)
+    return x, wt, bias
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["up", "full"])
 @pytest.mark.parametrize("shape", [
-    (4, 32, 128, 64),    # '512thin' G block 3
-    (2, 256, 16, 8),     # '512thin' G block 7
-    (3, 7, 5, 7),        # ragged spatial size and channels
-    (1, 9, 3, 100),      # two channel blocks per parity
+    (2, 32, 32, 128, 64),   # '512thin' G block 3
+    (2, 64, 64, 64, 32),    # '512thin' G block 5
+    (2, 128, 128, 32, 16),  # '512thin' G block 6
+    (2, 256, 256, 16, 8),   # '512thin' G block 7
+    (2, 37, 19, 5, 7),      # ragged: both tile edges, cout % 4, partial chunk
+    (3, 7, 7, 5, 7),        # smaller than one tile
+    (1, 9, 11, 12, 100),    # co past one channel slice; 'up' partial chunk
+    (1, 20, 33, 6, 12),     # 'full' cin 6: a partial chunk of 2
 ])
-def test_parity_conv_kernel_matches_plain(cuda, mode, shape):
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_parity_conv_kernel_matches_plain(cuda, mode, shape, with_bias):
     from tartangan_torch.ops.parity_conv import (
         fused_parity_conv_plain,
         merged_tap_conv,
     )
-    b, h, cin, cout = shape
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    ci = cin if mode == "up" else 4 * cin
-    x = torch.randn(b, h, h, ci, device=cuda, generator=gen)
-    w = 0.1 * torch.randn(cout, cin, 3, 3, device=cuda, generator=gen)
+    b, h, w, cin, cout = shape
+    x, wt, bias = _k3_case(cuda, mode, *shape)
+    bias = bias if with_bias else None
     before = merged_tap_conv.launches
-    out = merged_tap_conv(x, w, cout, mode)
+    out = merged_tap_conv(x, wt, cout, mode, bias=bias)
     torch.cuda.synchronize()
     assert merged_tap_conv.launches == before + 1
-    assert out.shape == (b, h, h, 4 * cout)
-    _scaled_close(out, fused_parity_conv_plain(x, w, cout, mode))
+    assert out.shape == (b, h, w, 4 * cout)
+    _scaled_close(out, fused_parity_conv_plain(x, wt, cout, mode, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["up", "full"])
+def test_parity_conv_kernel_is_deterministic(cuda, mode):
+    """Two launches give bit-identical outputs: no atomics, one order."""
+    from tartangan_torch.ops.parity_conv import merged_tap_conv
+    x, wt, bias = _k3_case(cuda, mode, 2, 37, 19, 8, 16, seed=5)
+    first = merged_tap_conv(x, wt, 16, mode, bias=bias)
+    second = merged_tap_conv(x, wt, 16, mode, bias=bias)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

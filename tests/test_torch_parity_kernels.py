@@ -29,16 +29,17 @@ def _t(a):
 
 
 # ------------------------------------------------------------------- K3
-def _k3_inputs(rng, mode, b, h, cin, cout):
+def _k3_inputs(rng, mode, b, h, w, cin, cout):
     ci = cin if mode == "up" else 4 * cin
-    x = rng.standard_normal((b, h, h, ci)).astype(np.float32)
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
     w = (0.1 * rng.standard_normal((3, 3, cin, cout))).astype(np.float32)
     bias = rng.standard_normal((cout,)).astype(np.float32)
     return x, w, bias
 
 
 @pytest.mark.parametrize("mode", ["up", "full"])
-@pytest.mark.parametrize("shape", [(2, 6, 3, 5), (1, 7, 4, 3), (2, 4, 8, 8)])
+@pytest.mark.parametrize("shape", [(2, 6, 6, 3, 5), (1, 7, 7, 4, 3),
+                                   (2, 4, 4, 8, 8), (2, 5, 9, 3, 2)])
 def test_k3_plain_matches_jax_interpret(rng, monkeypatch, mode, shape):
     monkeypatch.setattr(JPC, "_INTERPRET", True)
     x, w, bias = _k3_inputs(rng, mode, *shape)
@@ -59,7 +60,7 @@ def test_k3_function_gradients_match_jax(rng, monkeypatch, mode):
     """The Function's backward (the 3x3-packed form's vector-Jacobian
     product) against JAX's ``custom_vjp`` of ``fused_parity_conv``."""
     monkeypatch.setattr(JPC, "_INTERPRET", True)
-    x, w, bias = _k3_inputs(rng, mode, 2, 4, 4, 3)
+    x, w, bias = _k3_inputs(rng, mode, 2, 4, 4, 4, 3)
     cot = rng.standard_normal((2, 4, 4, 12)).astype(np.float32)
     ref = jax.grad(lambda a, b, c: jnp.sum(
         JPC.fused_parity_conv(a, b, c, 3, mode) * cot), argnums=(0, 1, 2))(
@@ -74,6 +75,34 @@ def test_k3_function_gradients_match_jax(rng, monkeypatch, mode):
         np.testing.assert_allclose(a, np.asarray(r), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["up", "full"])
+def test_k3_bias_on_the_cpu(rng, mode):
+    """``merged_tap_conv(..., bias=b)`` on the CPU is the plain version plus
+    ``tile(b, 4)``; ``fused_parity_conv``'s forward and gradients are those
+    of the plain version with the bias added outside, as before."""
+    x, w, bias = _k3_inputs(rng, mode, 2, 5, 3, 4, 3)
+    x, w, bias = _t(x), _oihw(w), _t(bias)
+    plain = PC.fused_parity_conv_plain(x, w, 3, mode)
+    before = PC.merged_tap_conv.launches
+    out = PC.merged_tap_conv(x, w, 3, mode, bias=bias)
+    assert PC.merged_tap_conv.launches == before
+    torch.testing.assert_close(out, plain + bias.repeat(4), rtol=0, atol=0)
+    torch.testing.assert_close(
+        PC.fused_parity_conv_plain(x, w, 3, mode, bias), out, rtol=0, atol=0)
+    cot = _t(rng.standard_normal(out.shape).astype(np.float32))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        y = fn(*leaves)
+        return (y,) + torch.autograd.grad((y * cot).sum(), leaves)
+
+    ours = grads(lambda a, b, c: PC.fused_parity_conv(a, b, c, 3, mode))
+    ref = grads(lambda a, b, c: PC.fused_parity_conv_plain(a, b, 3, mode)
+                + c.repeat(4))
+    for a, r in zip(ours, ref):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
 def test_k3_wrapper_rejects_what_it_cannot_take():
     x = torch.zeros(1, 4, 4, 8)
     w = torch.zeros(3, 8, 3, 3)
@@ -83,3 +112,7 @@ def test_k3_wrapper_rejects_what_it_cannot_take():
         PC.merged_tap_conv(x, w, 3, "down")
     with pytest.raises(ValueError):
         PC.merged_tap_conv(x, w, 3, "full")  # 'full' needs 4 * cin channels
+    with pytest.raises(ValueError, match="bias"):
+        PC.merged_tap_conv(x, w, 3, "up", bias=torch.zeros(4))
+    with pytest.raises(TypeError):
+        PC.merged_tap_conv(x, w, 3, "up", bias=torch.zeros(3).double())
