@@ -12,10 +12,11 @@ printing a result:
    checkout (``tartangan_torch/ops/build.py``), all in parallel.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes and more, with the tolerances
-   stated below; then the attention's two autograd Functions (K1 forward,
-   K2 backward, the plain vector-Jacobian product beneath) against autograd
-   through the plain attention, to second order, at the '512thin'
-   discriminator's shape. Then the parity kernels: K3 (merged-tap parity
+   stated below (K2 fed from K1's o and lse, as the train step runs it,
+   and K1's lse against the plain forward's); then the attention's two
+   autograd Functions (K1 forward, K2 backward, the plain vector-Jacobian
+   product beneath) against autograd through the plain attention, to
+   second order, at the '512thin' discriminator's shape. Then the parity kernels: K3 (merged-tap parity
    conv, both modes, with the bias) at the eight '512thin' G shapes and
    two ragged ones (one non-square across both tile edges), K4
    and K5 (the fused G block) at both fused blocks' shapes and one with a
@@ -41,8 +42,9 @@ printing a result:
    against one with the plain attention, from the same state, batch and
    latents (losses, gp, and the gradients as Adam's first moment).
 6. times: kernel, plain version, one PyTorch library call and the bound,
-   for K1 at the serving and training shapes and K2 at the training
-   shapes; ``generate`` latency at B = 1 and B = 25 and the train step at
+   for K1 at the serving and both training shapes (storing lse there) and
+   K2 at both training shapes (given o and lse, its delta launch
+   included); ``generate`` latency at B = 1 and B = 25 and the train step at
    B = 64 (kernel and plain attention), each with a profile of device time
    by kernel and the device's idle share; the train step's peak memory.
 7. parity: trains full-width '512thin' for 3 steps at B = 64 with
@@ -61,7 +63,8 @@ printing a result:
    share of the bound and the ratio to ``F.conv2d``).
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
-line (K1-K5; K3-K5's times summed over the launches of one G forward),
+line (K1-K5; K1/K2 at the G shape with the D shape's times under
+``shape_d``; K3-K5's times summed over the launches of one G forward),
 the ``nvidia-smi`` name/power-limit line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -71,6 +74,7 @@ import contextlib
 import copy
 import gc
 import json
+import re
 import shutil
 import statistics
 import struct
@@ -180,17 +184,60 @@ def host_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def clocks_during(fn, seconds=1.5):
+    """nvidia-smi's SM clock (MHz) and power draw (W), sampled every 100 ms
+    while ``fn`` is called back to back for ``seconds`` (the launch queue
+    keeps the card busy until the sampler stops): (median clock, min clock,
+    median power, samples), or None without samples."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    torch.cuda.synchronize()
+    rows = [[float(x) for x in line.split(",")]
+            for line in out.strip().splitlines() if line.strip()]
+    if not rows:
+        return None
+    clocks, power = [r[0] for r in rows], [r[1] for r in rows]
+    return (statistics.median(clocks), min(clocks), statistics.median(power),
+            len(rows))
+
+
+def ptxas_usage(text):
+    """(kernel, registers and shared memory, spills) of each entry function
+    in ``nvcc -Xptxas -v`` output; the kernel named by its mangled template
+    name (e.g. ``dkdv_kernelIfLi8ELi32E...``: float, Ck 8, Cv 32)."""
+    kernel, spill = "?", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            m = re.search(r"([a-z_]*kernel[A-Za-z0-9_]*?)EvP", name)
+            kernel = m.group(1) if m else name[:60]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            yield kernel, line.split(":", 1)[-1].strip(), spill
+
+
 def attention_bound_ms(b, lq, lk, ck, cv, itemsize, backward=False):
     """Least time for the attention on an H100: each input read once and
     each output written once, against the float32 FLOPs the JAX kernel
-    does: 2*B*Lq*Lk*(Ck+Cv) forward; 2*B*Lq*Lk*(3*Ck+2*Cv) backward (s,
-    dp, dq, dk, dv), with q, k, v, do in and dq, dk, dv out."""
+    does: 2*B*Lq*Lk*(Ck+Cv) forward, with q, k, v in and o and the f32 lse
+    out; 2*B*Lq*Lk*(3*Ck+2*Cv) backward (s, dp, dq, dk, dv), with q, k, v,
+    do, o and lse in and dq, dk, dv out."""
     qkv = b * lq * ck + b * lk * ck + b * lk * cv
     if backward:
-        nbytes = itemsize * (2 * qkv + b * lq * cv)
+        nbytes = itemsize * (2 * qkv + 2 * b * lq * cv) + 4 * b * lq
         flops = 2 * b * lq * lk * (3 * ck + 2 * cv)
     else:
-        nbytes = itemsize * (qkv + b * lq * cv)
+        nbytes = itemsize * (qkv + b * lq * cv) + 4 * b * lq
         flops = 2 * b * lq * lk * (ck + cv)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
@@ -242,10 +289,13 @@ def phase_kernels(dev):
 
 
 def check_attention_bwd(dev):
-    """K2 against attention_bwd_plain; returns the largest float32 max abs
-    error at the '512thin' training shapes."""
-    from tartangan_torch.ops.attention import (attention_bwd,
-                                               attention_bwd_plain)
+    """K2 fed from K1's (o, lse), as the train step runs it, against
+    attention_bwd_plain; K1's lse against the plain forward's. Returns the
+    largest float32 max abs error of K2 at the '512thin' training shapes."""
+    from tartangan_torch.ops.attention import (_bwd, _fwd, attention,
+                                               attention_bwd,
+                                               attention_bwd_plain,
+                                               attention_lse_plain)
     shapes = [("512thin G train", 64, 4096, 1024, 8, 32),
               ("512thin D train", 64, 1024, 256, 8, 32),
               ("1024 G", 8, 4096, 1024, 32, 128),
@@ -257,10 +307,19 @@ def check_attention_bwd(dev):
             q, k, v, do = (
                 torch.randn(s, device=dev, generator=gen).to(dtype)
                 for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv), (b, lq, cv)))
-            outs = attention_bwd(q, k, v, do)
+            before = (attention.launches, attention_bwd.launches)
+            o, lse = _fwd(q, k, v, with_lse=True)
+            outs = _bwd(q, k, v, do, o, lse)
             refs = attention_bwd_plain(q, k, v, do)
+            lse_ref = attention_lse_plain(q, k)
             torch.cuda.synchronize()
-            errs = []
+            if (attention.launches - before[0],
+                    attention_bwd.launches - before[1]) != (1, 1):
+                raise AssertionError("K1 then K2: expected one launch each")
+            lse_err = (lse - lse_ref).abs().max().item()
+            torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+            del o, lse, lse_ref
+            errs = [f"lse {lse_err:.3e}"]
             for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
                 assert out.dtype == dtype and out.shape == ref.shape
                 scale = ref.float().abs().max()
@@ -1411,11 +1470,14 @@ def time_parity_kernels(dev, launches, errs):
 
 
 def time_attention(dev, launches, errs):
-    """K1 and K2 at the training shapes: kernel, plain version, the
-    library call and the bound; the records of the kernels line."""
+    """K1 and K2 at the two training shapes as the train step runs them
+    (K1 storing lse; K2 given K1's o and lse, its delta launch included):
+    kernel, plain version, the library call and the bound. The records of
+    the kernels line carry the G shape's numbers and, under ``shape_d``,
+    the D shape's."""
     import torch.nn.functional as F
 
-    from tartangan_torch.ops.attention import (attention, attention_bwd,
+    from tartangan_torch.ops.attention import (_bwd, _fwd,
                                                attention_bwd_plain,
                                                attention_plain)
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -1427,44 +1489,69 @@ def time_attention(dev, launches, errs):
                                  (b, lq, cv)))
         shape = f"{label} train B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv} float32"
         fwd = [cuda_ms(lambda: attention_plain(q, k, v)),
-               cuda_ms(lambda: attention(q, k, v)),
-               cuda_ms(lambda: attention(q, k, v)),
+               cuda_ms(lambda: _fwd(q, k, v, with_lse=True)),
+               cuda_ms(lambda: _fwd(q, k, v, with_lse=True)),
                cuda_ms(lambda: attention_plain(q, k, v))]
         fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0))
         fwd_bound = attention_bound_ms(b, lq, lk, ck, cv, 4)
-        log(f"time attention_fwd {shape}: kernel {fwd[1]:.4f}/{fwd[2]:.4f} "
-            f"ms, plain {fwd[0]:.4f}/{fwd[3]:.4f} ms, sdpa {fwd_lib:.4f} ms,"
-            f" bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+        log(f"time attention_fwd {shape} (with lse): kernel "
+            f"{fwd[1]:.4f}/{fwd[2]:.4f} ms, plain {fwd[0]:.4f}/{fwd[3]:.4f}"
+            f" ms, sdpa {fwd_lib:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+            f"({fwd_bound[1]}); kernel at "
+            f"{100 * fwd_bound[0] / statistics.median(fwd[1:3]):.1f} % of "
+            f"the bound")
+        o, lse = _fwd(q, k, v, with_lse=True)
         bwd = [cuda_ms(lambda: attention_bwd_plain(q, k, v, do), iters=5),
-               cuda_ms(lambda: attention_bwd(q, k, v, do), iters=5),
-               cuda_ms(lambda: attention_bwd(q, k, v, do), iters=5),
+               cuda_ms(lambda: _bwd(q, k, v, do, o, lse), iters=5),
+               cuda_ms(lambda: _bwd(q, k, v, do, o, lse), iters=5),
                cuda_ms(lambda: attention_bwd_plain(q, k, v, do), iters=5)]
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, scale=1.0)
         bwd_lib = cuda_ms(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), iters=5)
         bwd_bound = attention_bound_ms(b, lq, lk, ck, cv, 4, backward=True)
-        log(f"time attention_bwd {shape}: kernel {bwd[1]:.4f}/{bwd[2]:.4f} "
-            f"ms, plain {bwd[0]:.4f}/{bwd[3]:.4f} ms, sdpa backward "
-            f"{bwd_lib:.4f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        log(f"time attention_bwd {shape} (given o, lse): kernel "
+            f"{bwd[1]:.4f}/{bwd[2]:.4f} ms, plain {bwd[0]:.4f}/{bwd[3]:.4f}"
+            f" ms, sdpa backward {bwd_lib:.4f} ms, bound {bwd_bound[0]:.4f} "
+            f"ms ({bwd_bound[1]}); kernel at "
+            f"{100 * bwd_bound[0] / statistics.median(bwd[1:3]):.1f} % of "
+            f"the bound")
+        # K2's three kernels (delta, dq, dk/dv; dk/dv may overlap dq's tail)
+        profile_call(f"attention_bwd {shape}",
+                     lambda: (_bwd(q, k, v, do, o, lse),
+                              torch.cuda.synchronize()))
         if label == "G":
-            for name, src, line, t, lib, bound in (
-                    ("attention_fwd", "attention_fwd.cu", 41, fwd, fwd_lib,
-                     fwd_bound),
-                    ("attention_bwd", "attention_bwd.cu", 164, bwd, bwd_lib,
-                     bwd_bound)):
+            # the bound takes the float32 peak at the 1980 MHz boost clock:
+            # read the clock the card holds under K2
+            got = clocks_during(lambda: _bwd(q, k, v, do, o, lse))
+            share = bwd_bound[0] / statistics.median(bwd[1:3])
+            if got:
+                log(f"clocks under attention_bwd {shape}: SM median "
+                    f"{got[0]:.0f} MHz (min {got[1]:.0f}), power median "
+                    f"{got[2]:.1f} W, {got[3]} samples; K2 at "
+                    f"{100 * share * 1980 / got[0]:.1f} % of its bound "
+                    f"restated at that clock")
+        for name, src, line, t, lib, bound in (
+                ("attention_fwd", "attention_fwd.cu", 41, fwd, fwd_lib,
+                 fwd_bound),
+                ("attention_bwd", "attention_bwd.cu", 164, bwd, bwd_lib,
+                 bwd_bound)):
+            times = {"ms": statistics.median([t[1], t[2]]),
+                     "plain_ms": statistics.median([t[0], t[3]]),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": lib}
+            if label == "G":
                 records[name] = {
                     "name": name, "route": "cuda",
                     "source": f"tartangan_torch/csrc/{src}",
                     "replaces": f"tartangan_tpu/ops/pallas/attention.py:{line}",
                     "launches": launches[name], "max_abs_err": errs[name],
-                    "ms": statistics.median([t[1], t[2]]),
-                    "plain_ms": statistics.median([t[0], t[3]]),
-                    "bound_ms": bound[0], "bound_by": bound[1],
-                    "library_ms": lib,
-                }
-        del q, k, v, do, leaves, out
+                    **times}
+            else:
+                records[name]["shape_d"] = {
+                    "shape": f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}", **times}
+        del q, k, v, do, o, lse, leaves, out
     return [records["attention_fwd"], records["attention_bwd"]]
 
 
@@ -1492,9 +1579,8 @@ def main():
         logs = build.build()
         log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
         for name, text in logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+            for kernel, used, spill in ptxas_usage(text):
+                log(f"  ptxas {name} {kernel}: {used}; {spill}")
 
         errs = phase_kernels(dev)
         perrs = phase_parity_kernels(dev)

@@ -27,7 +27,12 @@
 //   - all threads read the same K/V element at the same time, so shared
 //     memory serves each read as one broadcast;
 //   - ragged Lq rows are masked on load/store, ragged Lk keys get a -inf
-//     score; Ck is zero-padded to the instantiated width (8..64).
+//     score; Ck is zero-padded to the instantiated width (8..64);
+//   - where the caller passes an lse pointer (training), each row's
+//     log-sum-exp in the log2 domain, m + log2 l of the online softmax, is
+//     stored as (B, Lq) f32 beside o: the backward kernel
+//     (attention_bwd.cu) takes p from it instead of sweeping the keys again.
+//     Serving passes a null pointer and skips the store.
 // Plain FMA loops only: no tensor cores, TMA or warp specialisation yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,8 +63,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T, int CK>
 __global__ void __launch_bounds__(kBlockQ)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int lq,
-                     int lk, int ck, int cv) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int lq, int lk, int ck,
+                     int cv) {
   __shared__ __align__(16) float ks[kBlockK][CK];
   __shared__ __align__(16) float vs[kBlockK][kChunkV];
 
@@ -136,12 +142,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kChunkV; ++c) {
       if (c < nv) orow[c] = from_float<T>(acc[c] * inv);
     }
+    // every column chunk has the same m and l; the first stores them
+    if (lse != nullptr && blockIdx.y == 0) {
+      lse[static_cast<size_t>(b) * lq + row] = m + log2f(l);
+    }
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int lq, int lk, int ck, int cv, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int lq, int lk, int ck, int cv,
+                   cudaStream_t stream) {
   const dim3 grid((lq + kBlockQ - 1) / kBlockQ, (cv + kChunkV - 1) / kChunkV,
                   b);
   const T* qt = static_cast<const T*>(q);
@@ -149,35 +160,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (ck <= 8) {
-    attention_fwd_kernel<T, 8><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lq, lk, ck, cv);
+    attention_fwd_kernel<T, 8><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lse, lq, lk, ck, cv);
   } else if (ck <= 16) {
-    attention_fwd_kernel<T, 16><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lq, lk, ck, cv);
+    attention_fwd_kernel<T, 16><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lse, lq, lk, ck, cv);
   } else if (ck <= 32) {
-    attention_fwd_kernel<T, 32><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lq, lk, ck, cv);
+    attention_fwd_kernel<T, 32><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lse, lq, lk, ck, cv);
   } else {
-    attention_fwd_kernel<T, kMaxCk><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lq, lk, ck, cv);
+    attention_fwd_kernel<T, kMaxCk><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, lse, lq, lk, ck, cv);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// cudaErrorInvalidValue for shapes the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. lse: (B, Lq) f32 output, or null to
+// skip it. Returns a cudaError_t (0 on success); cudaErrorInvalidValue for
+// shapes the kernel does not take.
 extern "C" int tt_attention_fwd(const void* q, const void* k, const void* v,
-                                void* o, int b, int lq, int lk, int ck, int cv,
-                                int dtype, void* stream) {
+                                void* o, void* lse, int b, int lq, int lk,
+                                int ck, int cv, int dtype, void* stream) {
   if (b < 1 || b > 65535 || lq < 1 || lk < 1 || ck < 1 || ck > kMaxCk ||
       cv < 1 || (cv + kChunkV - 1) / kChunkV > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch<float>(q, k, v, o, b, lq, lk, ck, cv, s));
+      return static_cast<int>(
+          launch<float>(q, k, v, o, l, b, lq, lk, ck, cv, s));
     case 1:
       return static_cast<int>(
-          launch<__nv_bfloat16>(q, k, v, o, b, lq, lk, ck, cv, s));
+          launch<__nv_bfloat16>(q, k, v, o, l, b, lq, lk, ck, cv, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

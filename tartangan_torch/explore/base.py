@@ -24,6 +24,7 @@ from ..models.pluggan import Generator
 from ..utils import msgpack
 from ..utils.app import App
 from ..utils.fs import smart_ls, smart_open
+from ..utils.precision import full_float32
 
 
 def parse_run_config(config_args_path):
@@ -86,6 +87,7 @@ class GOutputApp(App):
         self.load_run_config()
         ckpt = self.resolve_checkpoint_dir()
         self.device = torch.device(self.args.device)
+        full_float32()
         g = self.build_generator()
         variables = _read_msgpack(os.path.join(ckpt, "g.msgpack"))
         if target:

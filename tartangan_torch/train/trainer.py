@@ -31,6 +31,7 @@ from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
+from ..utils.precision import full_float32
 from .components.container import ComponentContainer
 from .progress import ProgressLine
 
@@ -93,6 +94,7 @@ class Trainer:
         # --dtype auto is float32, the JAX package's rule off a TPU; bf16
         # raised above
         self.dtype = torch.float32
+        full_float32()
 
         self.run_id = args.run_id if args.run_id is not None \
             else self._generate_run_id()

@@ -26,7 +26,9 @@ from tartangan_torch.models.attention import SelfAttention2d
 from tartangan_torch.ops.attention import (
     attention,
     attention_bwd,
+    attention_bwd_from_stats_plain,
     attention_bwd_plain,
+    attention_lse_plain,
     attention_plain,
 )
 
@@ -192,12 +194,74 @@ def test_functions_match_autograd_through_plain(rng, order):
 
 
 def test_bwd_wrapper_takes_plain_version_on_cpu(rng):
+    """On the CPU ``attention_bwd`` runs K1's and K2's plain versions: the
+    plain forward for (o, lse), then K2's math from them, bit for bit;
+    which is the closed form within f32 rounding."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng, SHAPES[1]))
     do = torch.randn(q.shape[0], q.shape[1], v.shape[2])
-    before = attention_bwd.launches
+    before = (attention.launches, attention_bwd.launches)
     out = attention_bwd(q, k, v, do)
-    assert attention_bwd.launches == before
-    for a, b in zip(out, attention_bwd_plain(q, k, v, do)):
+    assert (attention.launches, attention_bwd.launches) == before
+    stats = (attention_plain(q, k, v), attention_lse_plain(q, k))
+    for a, b, c in zip(out, attention_bwd_from_stats_plain(q, k, v, do, *stats),
+                       attention_bwd_plain(q, k, v, do)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+        _scaled_close(a, c.numpy(), TOL["float32"])
     with pytest.raises(ValueError):
         attention_bwd(q, k, v, do[:, :-1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_lse_matches_numpy_logsumexp(rng, shape):
+    """The plain forward's lse (what K1 stores for K2): each row's
+    log-sum-exp of q k^T, times log2(e), in f32."""
+    q, k, _ = _qkv(rng, shape)
+    logits = np.einsum("bqc,bkc->bqk", q.astype(np.float64),
+                       k.astype(np.float64))
+    m = logits.max(-1, keepdims=True)
+    ref = (m[..., 0] + np.log(np.exp(logits - m).sum(-1))) / np.log(2.0)
+    lse = attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k))
+    assert lse.dtype == torch.float32 and lse.shape == shape[:2]
+    np.testing.assert_allclose(lse.numpy(), ref, **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_from_stats_plain_matches_jax(rng, shape, dtype):
+    """K2's math in plain torch (p from the forward's lse, delta = do . o)
+    on the plain forward's (o, lse) against ``attention_bwd_plain``,
+    ``_fused_attention_bwd_xla`` and, where the Pallas kernel takes the
+    shape, ``_attn_bwd_impl`` in interpret mode, on one set of numpy
+    inputs. In bfloat16, o is rounded to bf16 before delta = do . o."""
+    q, k, v = _qkv(rng, shape)
+    do = rng.standard_normal(shape[:2] + (shape[4],)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    jargs = [jnp.asarray(x, jdt) for x in (q, k, v, do)]
+    tq, tk, tv, tdo = (_torch(x, dtype) for x in (q, k, v, do))
+    o, lse = attention_plain(tq, tk, tv), attention_lse_plain(tq, tk)
+    ours = attention_bwd_from_stats_plain(tq, tk, tv, tdo, o, lse)
+    refs = [attention_bwd_plain(tq, tk, tv, tdo),
+            _fused_attention_bwd_xla(*jargs)]
+    if shape[1] % 512 == 0:
+        refs.append(_attn_bwd_impl(*jargs, interpret=True))
+    for ref in refs:
+        for a, b in zip(ours, ref):
+            assert a.dtype == getattr(torch, dtype) and a.shape == b.shape
+            b = b.float() if isinstance(b, torch.Tensor) else b
+            _scaled_close(a, b, TOL[dtype])
+
+
+def test_attention_function_saves_o_and_lse(rng):
+    """Under autograd the forward saves (q, k, v, o, lse) for the backward,
+    lse the plain forward's; outside it (grad off, as when serving) no
+    Function runs."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(rng, SHAPES[1]))
+    o = attention(q, k, v)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5
+    torch.testing.assert_close(saved[3], o, rtol=0, atol=0)
+    torch.testing.assert_close(saved[4], attention_lse_plain(q, k),
+                               rtol=0, atol=0)
+    with torch.no_grad():
+        assert attention(q, k, v).grad_fn is None

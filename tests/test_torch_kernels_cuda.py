@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from tartangan_torch.ops.attention import (
+    _bwd,
+    _fwd,
     attention,
     attention_bwd,
     attention_bwd_plain,
+    attention_lse_plain,
     attention_plain,
 )
 
@@ -58,6 +61,29 @@ def test_attention_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (4, 4096, 1024, 8, 32),     # '512thin' generator, training
+    (2, 200, 75, 5, 12),        # ragged Lq, Lk and Ck
+    (1, 70, 5000, 64, 33),      # Lk past the TPU kernel's 4096 limit
+])
+def test_attention_kernel_lse_matches_plain(cuda, shape, dtype):
+    """K1's lse (what K2 reads) against the plain forward's: both in f32
+    from the same (bf16 or f32) inputs, so at the f32 tolerance."""
+    b, lq, lk, ck, cv = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv)))
+    out, lse = _fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, lq)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k),
+                               **TOL[torch.float32])
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_attention_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 8, 65, device=cuda)
     with pytest.raises(ValueError, match="Ck"):
@@ -77,22 +103,50 @@ def test_attention_kernel_rejects_what_it_cannot_take(cuda):
     (2, 4096, 1024, 32, 128),   # '1024' generator
     (3, 1000, 333, 7, 40),      # ragged Lq, Lk, Ck and Cv
     (1, 70, 5000, 64, 33),      # Lk past the TPU kernel's 4096 limit
+    (2, 33, 5, 3, 6),           # Lk under one key block, Cv not 4k
+    (40, 4096, 1024, 8, 32),    # enough blocks for the 256-thread tiling
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, shape, dtype):
+    """K2 fed from K1's (o, lse), as the train step runs it, and through
+    the public ``attention_bwd`` (K1, then K2)."""
     b, lq, lk, ck, cv = shape
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v, do = (torch.randn(s, device=cuda, generator=gen).to(dtype)
                    for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
                              (b, lq, cv)))
-    before = attention_bwd.launches
-    out = attention_bwd(q, k, v, do)
+    refs = attention_bwd_plain(q, k, v, do)
+    before = (attention.launches, attention_bwd.launches)
+    o, lse = _fwd(q, k, v, with_lse=True)
+    fed = _bwd(q, k, v, do, o, lse)
+    public = attention_bwd(q, k, v, do)
     torch.cuda.synchronize()
-    assert attention_bwd.launches == before + 1
-    for got, ref in zip(out, attention_bwd_plain(q, k, v, do)):
-        assert got.dtype == dtype and got.shape == ref.shape
-        scale = ref.float().abs().max()
-        torch.testing.assert_close(got.float() / scale, ref.float() / scale,
-                                   **TOL[dtype])
+    assert (attention.launches, attention_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    for out in (fed, public):
+        for got, ref in zip(out, refs):
+            assert got.dtype == dtype and got.shape == ref.shape
+            scale = ref.float().abs().max()
+            torch.testing.assert_close(got.float() / scale,
+                                       ref.float() / scale, **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1024, 256, 8, 32),
+                                   (40, 2048, 1024, 8, 32),
+                                   (3, 1000, 333, 7, 40)])
+def test_attention_bwd_kernel_is_deterministic(cuda, shape):
+    """No atomics: two launches on the same inputs give the same bits."""
+    b, lq, lk, ck, cv = shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(s, device=cuda, generator=gen)
+                   for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
+                             (b, lq, cv)))
+    o, lse = _fwd(q, k, v, with_lse=True)
+    first = _bwd(q, k, v, do, o, lse)
+    second = _bwd(q, k, v, do, o, lse)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -128,6 +182,10 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="Cv"):
         attention_bwd(z(1, 8, 8, device=cuda), z(1, 4, 8, device=cuda),
                       z(1, 4, 129, device=cuda), z(1, 8, 129, device=cuda))
+    q, k, v, do = (z(1, 8, 8, device=cuda), z(1, 4, 8, device=cuda),
+                   z(1, 4, 16, device=cuda), z(1, 8, 16, device=cuda))
+    with pytest.raises(ValueError, match="lse"):
+        _bwd(q, k, v, do, do, z(1, 7, device=cuda))
 
 
 # ------------------------------------------- K3, K4, K5 (parity forms)
