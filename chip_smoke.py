@@ -2,6 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (``tartangan_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k1-ab OTHER/attention_fwd.cu [...]
+
+The second form only builds the kernels and times K1 built from each given
+source (the same C entry point, e.g. a parent commit's) against the
+checkout's at K1's four main-path shapes (and at G with logits large
+enough for many lazy rescales), in turns on the same inputs.
+
+Every kernel time is the kernel's own device time, read from
+``torch.profiler`` (the durations of its device events over 20 launches);
+the wrapper's time a call (CUDA events around 20 calls: the host's work
+between launches and any packing of weights included) stands beside it as
+``call_ms``.
 
 Phases, in order; any failure raises and the script exits non-zero without
 printing a result:
@@ -21,18 +33,34 @@ printing a result:
    two ragged ones (one non-square across both tile edges), K4
    and K5 (the fused G block) at both fused blocks' shapes and one with a
    projection, K4's sums too, and the two parity autograd Functions'
-   gradients against autograd through the plain forms. TF32 is off for
-   matmuls and convolutions in the whole script, so float32 references are
-   full float32.
-4. serve: writes a full-width '512thin' generator (random weights from a
+   gradients against autograd through the plain forms. K1 also at its
+   edges (ragged Lq and Lk, Lk 1, Ck and Cv not multiples of 4, B 1 with
+   its keys split over CTAs, logits large enough for many lazy rescales),
+   and two launches bit-identical. TF32 is off
+   for matmuls and convolutions in the whole script, so float32 references
+   are full float32. Then the no-sync check: a forward and backward of
+   '512thin''s G and D parity blocks, a fused G block and the attention,
+   with K1-K5 on, under ``torch.cuda.set_sync_debug_mode("error")`` after
+   a warm-up call.
+4. kernel times, before the train phases (after the train steps' long
+   profiles the profiler was seen to drop kernel events): device time and
+   the wrapper's call, plain version, one PyTorch library call and the
+   bound, for K1 at both training shapes (storing lse) and the serving
+   shapes (B 25 and B 1), K2 at both training shapes (given o and lse, its
+   delta launch included), with the SM clock under K1 and K2 at G; then K3,
+   K4 and K5 at the parity path's shapes (``F.conv2d`` of the 3x3-packed
+   form with the bias as K3's library call; for K3 also the share of the
+   bound and the ratio to ``F.conv2d``).
+5. serve: writes a full-width '512thin' generator (random weights from a
    seeded ``torch.Generator``, every attention ``gamma`` nonzero) as a run
    directory in the JAX trainer's layout, serves it in-process with
    ``tartangan_torch.serve``'s handler, fetches ``/meta``, ``/``,
    ``/generate`` and ``/grid``, checks the PNGs, and checks that the
    requests launched the attention kernel. Then holds the served
    generator against itself on the plain attention, and against a CPU run.
-   Times the served requests (host clock, after warm-up).
-5. train: writes a synthetic 512x512 tartan archive (192 images, the
+   Times the served requests (host clock, after warm-up), and ``generate``
+   at B = 1 and B = 25 with a profile each.
+6. train: writes a synthetic 512x512 tartan archive (192 images, the
    port's ``data/synthetic.py``) and trains full-width '512thin' for 3
    steps at B = 64, float32, through ``CNNTrainer.create_from_cli`` and
    ``.train()``; checks that every loss is finite, that each step launched
@@ -40,13 +68,9 @@ printing a result:
    the JAX trainer's layout, and that the port's serve app loads the run
    and generates on the card. Then holds one step with the kernels
    against one with the plain attention, from the same state, batch and
-   latents (losses, gp, and the gradients as Adam's first moment).
-6. times: kernel, plain version, one PyTorch library call and the bound,
-   for K1 at the serving and both training shapes (storing lse there) and
-   K2 at both training shapes (given o and lse, its delta launch
-   included); ``generate`` latency at B = 1 and B = 25 and the train step at
-   B = 64 (kernel and plain attention), each with a profile of device time
-   by kernel and the device's idle share; the train step's peak memory.
+   latents (losses, gp, and the gradients as Adam's first moment), and
+   times the step (kernel and plain attention) with a profile of device
+   time by kernel and the device's idle share, and its peak memory.
 7. parity: trains full-width '512thin' for 3 steps at B = 64 with
    ``--parity-blocks on``, ``ops.parity.FUSED_G`` and the fused G blocks
    (``g_block_factory(fused=True)`` through a trainer subclass, as no CLI
@@ -57,14 +81,13 @@ printing a result:
    FUSED_G off and the fused blocks on their plain versions, and on the
    plain path, each against the plain step in float64. Times the parity
    step and the plain step in turns (and the parity step with a layout
-   copy before each conv), with a profile and the peak memory; then K3, K4
-   and K5 at the path's shapes (kernel, plain, ``F.conv2d`` of the
-   3x3-packed form with the bias for K3, and the bound; for K3 also the
-   share of the bound and the ratio to ``F.conv2d``).
+   copy before each conv, and with its constants made anew at each call
+   as before they were cached), with profiles and the peak memory.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
-``shape_d``; K3-K5's times summed over the launches of one G forward),
+``shape_d`` and K1's serving shapes under ``shape_serve``; K3-K5's times
+summed over the launches of one G forward),
 the ``nvidia-smi`` name/power-limit line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import gc
 import json
 import re
@@ -173,6 +197,62 @@ def cuda_ms(fn, iters=20, reps=7):
     return statistics.median(times)
 
 
+def kernel_names(*names):
+    """Substrings that pick out the device events of the named kernels in
+    a profile, as the profiler names them demangled (``ns::name<...>``,
+    ``ns::name(...)``) or mangled (length and name)."""
+    return tuple(p for n in names
+                 for p in (f"::{n}<", f"::{n}(", f"{len(n)}{n}"))
+
+
+# each kernel's device events, and how many of them one wrapper call makes
+K1_EVENTS = (kernel_names("attention_fwd_kernel"), 1)
+K2_EVENTS = (kernel_names("delta_kernel", "dq_kernel", "dkdv_kernel"), 3)
+K3_EVENTS = (kernel_names("tile_kernel"), 1)
+K4_EVENTS = (kernel_names("gemm_kernel", "reduce_partials"), 2)
+K5_EVENTS = (kernel_names("gemm_kernel"), 1)
+
+
+def device_ms(fn, events, iters=20):
+    """A kernel's own device time a call, from ``torch.profiler``: ``fn``,
+    one wrapper call on inputs (and weights) made beforehand, is called
+    once to warm up, then ``iters`` times under the profiler; for each
+    kernel that ``events`` (patterns, kernels a call) picks out, the mean
+    duration of its device events, summed over the call's kernels. The
+    wrapper's own work (packing weights, allocating) and the host's time
+    between launches are not in it. The profiler drops device events that
+    end near the close of its window (seen on an H100: the last 7-8 of 20
+    0.9 ms launches), so the window stays open 0.1 s past the last launch,
+    and each kernel's mean is over the events it did record (at least half
+    of them, or this raises)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    patterns, per_call = events
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                any(p in e.name for p in patterns):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    counts = [len(t) for t in by_name.values()]
+    if len(by_name) != per_call or min(counts) < iters // 2:
+        raise RuntimeError(f"the profiler showed {counts} events of "
+                           f"{sorted(by_name)} for {per_call} kernel(s) x "
+                           f"{iters} calls matching {patterns[0]}")
+    if min(counts) < iters:
+        log(f"device_ms: the profiler recorded {counts} of {iters} launches "
+            f"of {[n[:60] for n in by_name]}")
+    return sum(statistics.mean(t) for t in by_name.values()) / 1e3
+
+
 def host_ms(fn, reps=10):
     """Median host-clock time of ``fn`` (which ends in a device->host copy)."""
     fn()
@@ -226,18 +306,20 @@ def ptxas_usage(text):
             yield kernel, line.split(":", 1)[-1].strip(), spill
 
 
-def attention_bound_ms(b, lq, lk, ck, cv, itemsize, backward=False):
+def attention_bound_ms(b, lq, lk, ck, cv, itemsize, backward=False,
+                       with_lse=True):
     """Least time for the attention on an H100: each input read once and
     each output written once, against the float32 FLOPs the JAX kernel
-    does: 2*B*Lq*Lk*(Ck+Cv) forward, with q, k, v in and o and the f32 lse
-    out; 2*B*Lq*Lk*(3*Ck+2*Cv) backward (s, dp, dq, dk, dv), with q, k, v,
-    do, o and lse in and dq, dk, dv out."""
+    does: 2*B*Lq*Lk*(Ck+Cv) forward, with q, k, v in and o and (when
+    training, ``with_lse``) the f32 lse out; 2*B*Lq*Lk*(3*Ck+2*Cv) backward
+    (s, dp, dq, dk, dv), with q, k, v, do, o and lse in and dq, dk, dv
+    out."""
     qkv = b * lq * ck + b * lk * ck + b * lk * cv
     if backward:
         nbytes = itemsize * (2 * qkv + 2 * b * lq * cv) + 4 * b * lq
         flops = 2 * b * lq * lk * (3 * ck + 2 * cv)
     else:
-        nbytes = itemsize * (qkv + b * lq * cv) + 4 * b * lq
+        nbytes = itemsize * (qkv + b * lq * cv) + 4 * b * lq * with_lse
         flops = 2 * b * lq * lk * (ck + cv)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
@@ -283,9 +365,61 @@ def phase_kernels(dev):
             torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
             if label.startswith("512thin") and dtype == torch.float32:
                 worst["attention_fwd"] = max(err, worst.get("attention_fwd", 0))
+    check_attention_edges(dev)
     worst["attention_bwd"] = check_attention_bwd(dev)
     check_double_backward(dev)
     return worst
+
+
+# K1 at its edges (B, Lq, Lk, Ck, Cv, scale of q): Lq not a multiple of any
+# CTA's rows, Lk of one key, under one tile and ragged, Ck and Cv not
+# multiples of 4 (the 4-byte copies), B 1 at the G shape (the small grid,
+# keys split over a cluster of CTAs), and large logits (q scaled by 6: many
+# lazy rescales)
+K1_EDGES = [(2, 1, 1024, 8, 32, 1), (3, 257, 37, 8, 32, 1),
+            (2, 1000, 333, 8, 32, 1), (4, 1000, 1, 8, 32, 1),
+            (2, 257, 333, 5, 3, 1), (1, 4096, 1024, 8, 32, 1),
+            (64, 1024, 256, 8, 32, 1), (1, 4096, 1024, 32, 128, 1),
+            (64, 4096, 1024, 8, 32, 6), (1, 4096, 1024, 8, 32, 6),
+            (3, 1000, 333, 7, 40, 6)]
+
+
+def check_attention_edges(dev):
+    """K1's output and lse against the plain versions at ``K1_EDGES``, in
+    float32 and bfloat16; and two launches bit-identical at the G training
+    shape and at B 1 (no atomics, one summation order)."""
+    from tartangan_torch.ops.attention import (_fwd, attention_lse_plain,
+                                               attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = {}
+    for b, lq, lk, ck, cv, scale in K1_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s, device=dev, generator=gen).to(dtype)
+                       for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv)))
+            q = (q.float() * scale).to(dtype)
+            out, lse = _fwd(q, k, v, with_lse=True)
+            ref, lse_ref = attention_plain(q, k, v), attention_lse_plain(q, k)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and out.shape == (b, lq, cv)
+            torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+            torch.testing.assert_close(lse, lse_ref, **TOL[torch.float32])
+            key = str(dtype)[6:]
+            worst[key] = max(worst.get(key, 0.0),
+                             (out.float() - ref.float()).abs().max().item(),
+                             (lse - lse_ref).abs().max().item())
+    log(f"kernel attention_fwd at its edges {K1_EDGES}: output and lse "
+        f"within {TOL[torch.float32]} (f32, largest error "
+        f"{worst['float32']:.3e}) and {TOL[torch.bfloat16]} (bf16 output, "
+        f"largest error {worst['bfloat16']:.3e})")
+    for b, lq, lk in ((64, 4096, 1024), (1, 4096, 1024)):
+        q, k, v = (torch.randn(s, device=dev, generator=gen)
+                   for s in ((b, lq, 8), (b, lk, 8), (b, lk, 32)))
+        first, second = _fwd(q, k, v, True), _fwd(q, k, v, True)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"K1 at B{b} Lq{lq} Lk{lk}: two launches "
+                                 "differ")
+    log("kernel attention_fwd: two launches bit-identical (o and lse) at "
+        "B64 and B1, Lq4096 Lk1024")
 
 
 def check_attention_bwd(dev):
@@ -663,29 +797,9 @@ def check_generator(app):
     assert moved > 1e-3, moved
 
 
-def phase_times(app, dev):
-    import torch.nn.functional as F
-
-    from tartangan_torch.ops.attention import attention, attention_plain
-    b, lq, lk, ck, cv = 25, 4096, 1024, 8, 32
-    gen = torch.Generator(device=dev).manual_seed(2)
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, lq, ck, device=dev, generator=gen).to(dtype)
-        k = torch.randn(b, lk, ck, device=dev, generator=gen).to(dtype)
-        v = torch.randn(b, lk, cv, device=dev, generator=gen).to(dtype)
-        ms_plain_a = cuda_ms(lambda: attention_plain(q, k, v))
-        ms_kernel_a = cuda_ms(lambda: attention(q, k, v))
-        ms_kernel_b = cuda_ms(lambda: attention(q, k, v))
-        ms_plain_b = cuda_ms(lambda: attention_plain(q, k, v))
-        ms_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                scale=1.0))
-        bound, bound_by = attention_bound_ms(b, lq, lk, ck, cv,
-                                             q.element_size())
-        log(f"time attention_fwd B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv} "
-            f"{str(dtype)[6:]}: kernel {ms_kernel_a:.4f}/{ms_kernel_b:.4f} ms,"
-            f" plain {ms_plain_a:.4f}/{ms_plain_b:.4f} ms, sdpa {ms_lib:.4f} "
-            f"ms, bound {bound:.4f} ms ({bound_by})")
-
+def phase_times(app):
+    """``generate`` at B 1 and B 25 with the kernel and with the plain
+    attention (host clock), each with a profile."""
     from tartangan_torch.models.attention import SelfAttention2d
     attn = [m for m in app.g.modules() if isinstance(m, SelfAttention2d)]
     rng = np.random.default_rng(3)
@@ -1315,13 +1429,37 @@ def hold_smooth_step(batch, z_d, z_g):
                  zero)[1]
 
 
+@contextlib.contextmanager
+def uncached_constants():
+    """Within the block every constant of the packers and the parity
+    downsamplers is made anew from numpy at each call, as before
+    ``ops/consts.py`` cached them: a pageable host-to-device copy, which
+    synchronizes the stream, each."""
+    from tartangan_torch.ops import consts
+    cached = consts.device_constant
+
+    def fresh(key, make_numpy, dtype, device):
+        return torch.as_tensor(make_numpy(), dtype=dtype, device=device)
+    consts.device_constant = fresh
+    try:
+        yield
+    finally:
+        consts.device_constant = cached
+
+
 def time_parity_step(trainer, plain, batch, z_d, z_g):
     """The parity step and the plain step, in turns (host clock,
-    synchronized), and a third turn of the parity step with the layout
+    synchronized), with two more turns of the parity step: with the layout
     copies that ``ops.parity.conv2d`` makes on the CPU made on the card as
-    well (its cost); the parity step's peak memory and profile."""
-    def once(t, copies=False):
-        with layout_copies() if copies else contextlib.nullcontext():
+    well (their cost), and with the constants made anew at every call (the
+    stream syncs the cache removed); the parity step's peak memory, and a
+    profile with and without the cache."""
+    def once(t, copies=False, uncached=False):
+        with contextlib.ExitStack() as stack:
+            if copies:
+                stack.enter_context(layout_copies())
+            if uncached:
+                stack.enter_context(uncached_constants())
             t0 = time.perf_counter()
             t._train_step(t.state, batch, z_d, z_g)
             torch.cuda.synchronize()
@@ -1329,12 +1467,14 @@ def time_parity_step(trainer, plain, batch, z_d, z_g):
 
     once(trainer)
     once(trainer, copies=True)
+    once(trainer, uncached=True)
     once(plain)
-    par, pl, cp = [], [], []
+    par, pl, cp, unc = [], [], [], []
     for _ in range(3):
         pl.append(once(plain))
         par.append(once(trainer))
         cp.append(once(trainer, copies=True))
+        unc.append(once(trainer, uncached=True))
     log(f"time train step '512thin' B{batch.shape[0]} float32 (host clock, "
         f"synchronized, 3 each in turns after warm-up): parity path "
         f"(--parity-blocks on, FUSED_G, fused G blocks) median "
@@ -1342,12 +1482,80 @@ def time_parity_step(trainer, plain, batch, z_d, z_g):
         f"plain path median {statistics.median(pl):.3f} ms "
         f"{[round(t, 3) for t in pl]}; parity path with a contiguous NCHW "
         f"copy before each of its convs median {statistics.median(cp):.3f} "
-        f"ms {[round(t, 3) for t in cp]}")
+        f"ms {[round(t, 3) for t in cp]}; parity path with its constants "
+        f"made anew at each call (before the cache) median "
+        f"{statistics.median(unc):.3f} ms {[round(t, 3) for t in unc]}")
     torch.cuda.reset_peak_memory_stats()
     once(trainer)
     log(f"parity train step peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_call("parity train step B64", lambda: once(trainer))
+    profile_call("parity train step B64, constants made anew at each call",
+                 lambda: once(trainer, uncached=True))
+
+
+def phase_no_sync(dev):
+    """One forward and backward of '512thin''s parity blocks and attention
+    at B 8 with the kernels on (a G parity block on K3, a fused G block on
+    K4/K5, D parity blocks through both parity downsamplers and the packers,
+    K1 and K2), after one warm-up call, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that synchronizes
+    the stream with the host raises."""
+    from tartangan_torch.models.blocks import (
+        FusedResidualGeneratorBlock,
+        ParityResidualDiscriminatorBlock,
+        ParityResidualGeneratorBlock,
+    )
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.attention import attention
+    torch.manual_seed(15)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    d_to_parity = ParityResidualDiscriminatorBlock(
+        16, 32, accept_parity=True, emit_parity=True)
+    d_to_plain = ParityResidualDiscriminatorBlock(
+        32, 64, accept_parity=True, emit_parity=False)
+    blocks = [(ParityResidualGeneratorBlock(128, 64), (8, 128, 32, 32)),
+              (FusedResidualGeneratorBlock(128, 128), (8, 128, 8, 8)),
+              (d_to_parity, (8, 64, 64, 64))]
+    blocks = [(m.to(dev), torch.randn(s, device=dev, generator=gen)
+               .requires_grad_()) for m, s in blocks]
+    d_to_plain.to(dev)
+    qkv = [torch.randn(s, device=dev, generator=gen).requires_grad_()
+           for s in ((8, 1024, 8), (8, 256, 8), (8, 256, 32))]
+    counters = parity_counters()
+
+    def run():
+        outs = [m(x, train=True) for m, x in blocks]
+        outs.append(d_to_plain(outs[-1], train=True))
+        outs.append(attention(*qkv))
+        loss = sum(o.float().square().mean() for o in outs)
+        loss.backward()
+
+    fused_g = P.FUSED_G
+    P.FUSED_G = True
+    try:
+        run()
+        torch.cuda.synchronize()
+        before = {k: f.launches for k, f in counters.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    finally:
+        P.FUSED_G = fused_g
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    want = {"attention_fwd": 1, "attention_bwd": 1, "parity_conv": 2,
+            "gblock_a": 1, "gblock_b": 1}
+    if launched != want:
+        raise AssertionError(f"no-sync check: expected launches {want}, "
+                             f"got {launched}")
+    log(f"no sync: a forward and backward of a G parity block (K3), a "
+        f"fused G block (K4/K5), two D parity blocks (both parity "
+        f"downsamplers, every D packer) and the attention (K1/K2), B 8, ran "
+        f"under torch.cuda.set_sync_debug_mode('error') after a warm-up "
+        f"call; launches {launched}")
 
 
 def _conv_bound_ms(macs, nbytes):
@@ -1355,12 +1563,14 @@ def _conv_bound_ms(macs, nbytes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def time_parity_kernels(dev, launches, errs):
+def time_parity_kernels(dev, errs):
     """K3 at the eight shapes of one '512thin' G forward and K4/K5 at the
-    two fused blocks' shapes: kernel, plain version, the library call (K3:
-    ``F.conv2d`` of the 3x3-packed form with the bias, as K3 adds it) and
-    the bound; each summed over the launches of one G forward for the
-    kernels line."""
+    two fused blocks' shapes: the kernel's device time (profiler; K4's
+    includes its sums' reduce launch), the wrapper's time a call (CUDA
+    events: packing the weights included), plain version, the library call
+    (K3: ``F.conv2d`` of the 3x3-packed form with the bias, as K3 adds it)
+    and the bound; each summed over the launches of one G forward for the
+    kernels line (whose launches, the parity path's, ``main`` fills in)."""
     import torch.nn.functional as F
 
     from tartangan_torch.ops import gblock as G
@@ -1370,16 +1580,17 @@ def time_parity_kernels(dev, launches, errs):
         merged_tap_conv,
     )
     gen = torch.Generator(device=dev).manual_seed(14)
-    # per kernel: kernel ms, plain ms, library ms, GFLOP, bytes
-    totals = {k: [0.0] * 5 for k in ("parity_conv", "gblock_a", "gblock_b")}
+    # per kernel: device ms, plain ms, library ms, MACs, bytes, call ms
+    totals = {k: [0.0] * 6 for k in ("parity_conv", "gblock_a", "gblock_b")}
 
-    def add_times(name, t, macs, nbytes, lib=0.0):
+    def add_times(name, t, t_dev, macs, nbytes, lib=0.0):
         tot = totals[name]
-        tot[0] += statistics.median([t[1], t[2]])
+        tot[0] += statistics.median(t_dev)
         tot[1] += statistics.median([t[0], t[3]])
         tot[2] += lib
         tot[3] += macs
         tot[4] += nbytes
+        tot[5] += statistics.median([t[1], t[2]])
     for label, b, h, wd, cin, cout in K3_SHAPES[:4]:
         for mode in ("up", "full"):
             wcin = cin if mode == "up" else cout
@@ -1399,20 +1610,23 @@ def time_parity_kernels(dev, launches, errs):
                 return fused_parity_conv_plain(x, w, cout, mode, bias)
             t = [cuda_ms(plain, iters=it), cuda_ms(kern, iters=it),
                  cuda_ms(kern, iters=it), cuda_ms(plain, iters=it)]
+            t_dev = [device_ms(kern, K3_EVENTS), device_ms(kern, K3_EVENTS)]
             lib = cuda_ms(lambda: F.conv2d(xc, w3, b4, padding=1), iters=it)
             taps = 16 * wcin if mode == "up" else 36 * wcin
             macs = b * h * wd * taps * cout
             nbytes = 4 * (x.numel() + b * h * wd * 4 * cout + w.numel()
                           + cout)
             bound = _conv_bound_ms(macs, nbytes)
-            ms = statistics.median([t[1], t[2]])
+            ms = statistics.median(t_dev)
             log(f"time parity_conv '{mode}' {label} x {tuple(x.shape)}: "
-                f"kernel {t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f}"
-                f" ms, F.conv2d 3x3-packed + bias {lib:.4f} ms, bound "
+                f"kernel device {t_dev[0]:.4f}/{t_dev[1]:.4f} ms (profiler), "
+                f"call {t[1]:.4f}/{t[2]:.4f} ms (CUDA events), plain "
+                f"{t[0]:.4f}/{t[3]:.4f} ms, F.conv2d 3x3-packed + bias "
+                f"{lib:.4f} ms, bound "
                 f"{bound[0]:.4f} ms ({bound[1]}, {2 * macs / 1e9:.2f} GFLOP);"
                 f" kernel at {100 * bound[0] / ms:.1f} % of the bound, "
                 f"{ms / lib:.3f}x F.conv2d's time")
-            add_times("parity_conv", t, macs, nbytes, lib)
+            add_times("parity_conv", t, t_dev, macs, nbytes, lib)
             del x, xc
     for label, b, h, cin, cout in GBLOCK_SHAPES[:2]:
         p = gblock_params(cin, cout, dev, gen)
@@ -1432,20 +1646,25 @@ def time_parity_kernels(dev, launches, errs):
         # bytes are counted
         short = 0 if torch.equal(p["wp"], torch.eye(cin, device=dev)) \
             else 4 * cin
-        for name, kern, plain, args, macs, nbytes in (
-                ("gblock_a", G.gblock_a, G.gblock_a_plain, args_a,
+        for name, kern, plain, args, events, macs, nbytes in (
+                ("gblock_a", G.gblock_a, G.gblock_a_plain, args_a, K4_EVENTS,
                  pos * 16 * cin * cout, 4 * (x.numel() + y1p.numel())),
-                ("gblock_b", G.gblock_b, G.gblock_b_plain, args_b,
+                ("gblock_b", G.gblock_b, G.gblock_b_plain, args_b, K5_EVENTS,
                  pos * (36 * cout + short) * cout,
                  4 * (2 * y1p.numel() + x.numel()))):
             t = [cuda_ms(lambda: plain(*args)), cuda_ms(lambda: kern(*args)),
                  cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))]
+            t_dev = [device_ms(lambda: kern(*args), events),
+                     device_ms(lambda: kern(*args), events)]
             bound = _conv_bound_ms(macs, nbytes)
             log(f"time {name} {label} x {tuple(x.shape)} Cout {cout}: kernel "
-                f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms, "
-                f"bound {bound[0]:.4f} ms ({bound[1]}, {2 * macs / 1e9:.2f} "
-                f"GFLOP)")
-            add_times(name, t, macs, nbytes)
+                f"device {t_dev[0]:.4f}/{t_dev[1]:.4f} ms (profiler), call "
+                f"{t[1]:.4f}/{t[2]:.4f} ms (CUDA events), plain "
+                f"{t[0]:.4f}/{t[3]:.4f} ms, bound {bound[0]:.4f} ms "
+                f"({bound[1]}, {2 * macs / 1e9:.2f} GFLOP); kernel at "
+                f"{100 * bound[0] / statistics.median(t_dev):.1f} % of the "
+                f"bound")
+            add_times(name, t, t_dev, macs, nbytes)
     records = []
     for name, src, replaces in (
             ("parity_conv", "parity_conv.cu",
@@ -1453,28 +1672,78 @@ def time_parity_kernels(dev, launches, errs):
             ("gblock_a", "gblock.cu", "tartangan_tpu/ops/pallas/gblock.py:196"),
             ("gblock_b", "gblock.cu",
              "tartangan_tpu/ops/pallas/gblock.py:234")):
-        ms, plain_ms, lib, macs, nbytes = totals[name]
+        ms, plain_ms, lib, macs, nbytes, call_ms = totals[name]
         bound_ms, bound_by = _conv_bound_ms(macs, nbytes)
         records.append({
             "name": name, "route": "cuda",
             "source": f"tartangan_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "launches": None, "max_abs_err": errs[name],
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib if name == "parity_conv" else None})
         log(f"kernels line {name}: summed over the launches of one G "
-            f"forward: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms" + (f", F.conv2d {lib:.4f} ms"
-                                    if name == "parity_conv" else ""))
+            f"forward: kernel device {ms:.4f} ms, call {call_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
+            + (f", F.conv2d {lib:.4f} ms" if name == "parity_conv" else ""))
     return records
 
 
-def time_attention(dev, launches, errs):
+def time_attention_serve(dev):
+    """K1 at the serving shapes (the '512thin' G attention at B 25 for
+    ``/grid`` and B 1 for ``/generate``, no lse): device time (profiler),
+    the wrapper's time a call, plain, SDPA and the bound. Returns the
+    float32 records for ``shape_serve``."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops.attention import _fwd, attention_plain
+    lq, lk, ck, cv = 4096, 1024, 8, 32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    serve = []
+    for b in (25, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, lq, ck, device=dev, generator=gen).to(dtype)
+            k = torch.randn(b, lk, ck, device=dev, generator=gen).to(dtype)
+            v = torch.randn(b, lk, cv, device=dev, generator=gen).to(dtype)
+
+            def k1():
+                return _fwd(q, k, v, with_lse=False)
+            t = [cuda_ms(lambda: attention_plain(q, k, v)), cuda_ms(k1),
+                 cuda_ms(k1), cuda_ms(lambda: attention_plain(q, k, v))]
+            t_dev = [device_ms(k1, K1_EVENTS), device_ms(k1, K1_EVENTS)]
+            ms_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0))
+            bound, bound_by = attention_bound_ms(b, lq, lk, ck, cv,
+                                                 q.element_size(),
+                                                 with_lse=False)
+            log(f"time attention_fwd serve B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv} "
+                f"{str(dtype)[6:]} (no lse): kernel device "
+                f"{t_dev[0]:.4f}/{t_dev[1]:.4f} ms (profiler), call "
+                f"{t[1]:.4f}/{t[2]:.4f} ms (CUDA events), plain "
+                f"{t[0]:.4f}/{t[3]:.4f} ms, sdpa {ms_lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({bound_by}); kernel at "
+                f"{100 * bound / statistics.median(t_dev):.1f} % of the "
+                f"bound")
+            if dtype == torch.float32:
+                serve.append({
+                    "shape": f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}, no lse",
+                    "ms": statistics.median(t_dev),
+                    "call_ms": statistics.median(t[1:3]),
+                    "plain_ms": statistics.median([t[0], t[3]]),
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": ms_lib})
+            del q, k, v
+    return serve
+
+
+def time_attention(dev, errs):
     """K1 and K2 at the two training shapes as the train step runs them
     (K1 storing lse; K2 given K1's o and lse, its delta launch included):
-    kernel, plain version, the library call and the bound. The records of
-    the kernels line carry the G shape's numbers and, under ``shape_d``,
-    the D shape's."""
+    the kernel's device time (profiler, twice), the wrapper's time a call
+    (CUDA events), the plain version, the library call and the bound. The
+    records of the kernels line carry the G shape's numbers and, under
+    ``shape_d``, the D shape's; K1's also the serving shapes' under
+    ``shape_serve`` (``time_attention_serve``). The launches are the train
+    path's, filled in by ``main``."""
     import torch.nn.functional as F
 
     from tartangan_torch.ops.attention import (_bwd, _fwd,
@@ -1488,56 +1757,63 @@ def time_attention(dev, launches, errs):
                        for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
                                  (b, lq, cv)))
         shape = f"{label} train B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv} float32"
-        fwd = [cuda_ms(lambda: attention_plain(q, k, v)),
-               cuda_ms(lambda: _fwd(q, k, v, with_lse=True)),
-               cuda_ms(lambda: _fwd(q, k, v, with_lse=True)),
-               cuda_ms(lambda: attention_plain(q, k, v))]
+
+        def k1():
+            return _fwd(q, k, v, with_lse=True)
+        fwd = [cuda_ms(lambda: attention_plain(q, k, v)), cuda_ms(k1),
+               cuda_ms(k1), cuda_ms(lambda: attention_plain(q, k, v))]
+        fwd_dev = [device_ms(k1, K1_EVENTS), device_ms(k1, K1_EVENTS)]
         fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=1.0))
         fwd_bound = attention_bound_ms(b, lq, lk, ck, cv, 4)
-        log(f"time attention_fwd {shape} (with lse): kernel "
-            f"{fwd[1]:.4f}/{fwd[2]:.4f} ms, plain {fwd[0]:.4f}/{fwd[3]:.4f}"
-            f" ms, sdpa {fwd_lib:.4f} ms, bound {fwd_bound[0]:.4f} ms "
-            f"({fwd_bound[1]}); kernel at "
-            f"{100 * fwd_bound[0] / statistics.median(fwd[1:3]):.1f} % of "
+        log(f"time attention_fwd {shape} (with lse): kernel device "
+            f"{fwd_dev[0]:.4f}/{fwd_dev[1]:.4f} ms (profiler), call "
+            f"{fwd[1]:.4f}/{fwd[2]:.4f} ms (CUDA events), plain "
+            f"{fwd[0]:.4f}/{fwd[3]:.4f} ms, sdpa {fwd_lib:.4f} ms, bound "
+            f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); kernel at "
+            f"{100 * fwd_bound[0] / statistics.median(fwd_dev):.1f} % of "
             f"the bound")
-        o, lse = _fwd(q, k, v, with_lse=True)
+        o, lse = k1()
+
+        def k2():
+            return _bwd(q, k, v, do, o, lse)
         bwd = [cuda_ms(lambda: attention_bwd_plain(q, k, v, do), iters=5),
-               cuda_ms(lambda: _bwd(q, k, v, do, o, lse), iters=5),
-               cuda_ms(lambda: _bwd(q, k, v, do, o, lse), iters=5),
+               cuda_ms(k2, iters=5), cuda_ms(k2, iters=5),
                cuda_ms(lambda: attention_bwd_plain(q, k, v, do), iters=5)]
+        bwd_dev = [device_ms(k2, K2_EVENTS), device_ms(k2, K2_EVENTS)]
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, scale=1.0)
         bwd_lib = cuda_ms(lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), iters=5)
         bwd_bound = attention_bound_ms(b, lq, lk, ck, cv, 4, backward=True)
-        log(f"time attention_bwd {shape} (given o, lse): kernel "
-            f"{bwd[1]:.4f}/{bwd[2]:.4f} ms, plain {bwd[0]:.4f}/{bwd[3]:.4f}"
-            f" ms, sdpa backward {bwd_lib:.4f} ms, bound {bwd_bound[0]:.4f} "
-            f"ms ({bwd_bound[1]}); kernel at "
-            f"{100 * bwd_bound[0] / statistics.median(bwd[1:3]):.1f} % of "
-            f"the bound")
-        # K2's three kernels (delta, dq, dk/dv; dk/dv may overlap dq's tail)
-        profile_call(f"attention_bwd {shape}",
-                     lambda: (_bwd(q, k, v, do, o, lse),
-                              torch.cuda.synchronize()))
+        log(f"time attention_bwd {shape} (given o, lse): kernel device "
+            f"{bwd_dev[0]:.4f}/{bwd_dev[1]:.4f} ms (profiler; delta, dq and "
+            f"dk/dv summed), call {bwd[1]:.4f}/{bwd[2]:.4f} ms (CUDA "
+            f"events), plain {bwd[0]:.4f}/{bwd[3]:.4f} ms, sdpa backward "
+            f"{bwd_lib:.4f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]});"
+            f" kernel at {100 * bwd_bound[0] / statistics.median(bwd_dev):.1f}"
+            f" % of the bound")
         if label == "G":
             # the bound takes the float32 peak at the 1980 MHz boost clock:
-            # read the clock the card holds under K2
-            got = clocks_during(lambda: _bwd(q, k, v, do, o, lse))
-            share = bwd_bound[0] / statistics.median(bwd[1:3])
-            if got:
-                log(f"clocks under attention_bwd {shape}: SM median "
-                    f"{got[0]:.0f} MHz (min {got[1]:.0f}), power median "
-                    f"{got[2]:.1f} W, {got[3]} samples; K2 at "
-                    f"{100 * share * 1980 / got[0]:.1f} % of its bound "
-                    f"restated at that clock")
-        for name, src, line, t, lib, bound in (
-                ("attention_fwd", "attention_fwd.cu", 41, fwd, fwd_lib,
-                 fwd_bound),
-                ("attention_bwd", "attention_bwd.cu", 164, bwd, bwd_lib,
-                 bwd_bound)):
-            times = {"ms": statistics.median([t[1], t[2]]),
+            # read the clock the card holds under each kernel
+            for name, fn, t_dev, bound in (
+                    ("attention_fwd", k1, fwd_dev, fwd_bound),
+                    ("attention_bwd", k2, bwd_dev, bwd_bound)):
+                got = clocks_during(fn)
+                share = bound[0] / statistics.median(t_dev)
+                if got:
+                    log(f"clocks under {name} {shape}: SM median "
+                        f"{got[0]:.0f} MHz (min {got[1]:.0f}), power median "
+                        f"{got[2]:.1f} W, {got[3]} samples; kernel at "
+                        f"{100 * share * 1980 / got[0]:.1f} % of its bound "
+                        f"restated at that clock")
+        for name, src, line, t, t_dev, lib, bound in (
+                ("attention_fwd", "attention_fwd.cu", 41, fwd, fwd_dev,
+                 fwd_lib, fwd_bound),
+                ("attention_bwd", "attention_bwd.cu", 164, bwd, bwd_dev,
+                 bwd_lib, bwd_bound)):
+            times = {"ms": statistics.median(t_dev),
+                     "call_ms": statistics.median([t[1], t[2]]),
                      "plain_ms": statistics.median([t[0], t[3]]),
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": lib}
@@ -1546,16 +1822,129 @@ def time_attention(dev, launches, errs):
                     "name": name, "route": "cuda",
                     "source": f"tartangan_torch/csrc/{src}",
                     "replaces": f"tartangan_tpu/ops/pallas/attention.py:{line}",
-                    "launches": launches[name], "max_abs_err": errs[name],
-                    **times}
+                    "launches": None, "max_abs_err": errs[name], **times}
             else:
                 records[name]["shape_d"] = {
                     "shape": f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}", **times}
         del q, k, v, do, o, lse, leaves, out
+    records["attention_fwd"]["shape_serve"] = time_attention_serve(dev)
     return [records["attention_fwd"], records["attention_bwd"]]
 
 
+# K1's shapes on the main path: (label, B, Lq, Lk, Ck, Cv, lse stored,
+# scale of q); the last with large logits (many lazy rescales)
+K1_SHAPES = [("G train", 64, 4096, 1024, 8, 32, True, 1),
+             ("D train", 64, 1024, 256, 8, 32, True, 1),
+             ("serve /grid", 25, 4096, 1024, 8, 32, False, 1),
+             ("serve /generate", 1, 4096, 1024, 8, 32, False, 1),
+             ("G train, q x 6", 64, 4096, 1024, 8, 32, True, 6)]
+
+
+def build_k1_variants(sources):
+    """``tt_attention_fwd`` of other K1 sources (the same C entry point,
+    e.g. a parent commit's ``attention_fwd.cu``), built in parallel with
+    the port's nvcc flags into ``build/k1_ab/`` and loaded; logs their
+    ptxas usage."""
+    from tartangan_torch.ops import build
+    out_dir = ROOT / "build" / "k1_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, src in enumerate(sources):
+        out = out_dir / f"libv{i}.so"
+        procs.append((src, out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    fns = []
+    for src, out, proc in procs:
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {src}:\n{text}")
+        for kernel, used, spill in ptxas_usage(text):
+            log(f"  ptxas {src} {kernel}: {used}; {spill}")
+        fn = ctypes.CDLL(str(out)).tt_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append((src, fn))
+    return fns
+
+
+def k1_ab(sources):
+    """K1 built from each of ``sources`` against the checkout's K1 at
+    ``K1_SHAPES`` in float32, on the same inputs: each held against the
+    plain version, then each one's device time (profiler, 20 launches) in
+    turns, the others, the checkout's twice, the others again. Returns the
+    JSON-ready results."""
+    from tartangan_torch.ops import build
+    from tartangan_torch.ops.attention import (attention_lse_plain,
+                                               attention_plain)
+    lib = build.load("attention_fwd")
+    variants = build_k1_variants(sources)
+    checkout = lib.tt_attention_fwd
+    checkout.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    checkout.restype = ctypes.c_int
+    variants.append(("checkout", checkout))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    results, wrong = [], []
+    for label, b, lq, lk, ck, cv, with_lse, scale in K1_SHAPES:
+        q, k, v = (torch.randn(s, device="cuda", generator=gen)
+                   for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv)))
+        q *= scale
+        out = torch.empty((b, lq, cv), device="cuda")
+        lse = torch.empty((b, lq), device="cuda") if with_lse else None
+        ref = attention_plain(q, k, v)
+        lse_ref = attention_lse_plain(q, k)
+
+        def call(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), b, lq, lk, ck,
+                     cv, 0, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K1 launch failed: cudaError {err}")
+        errs = {}
+        for name, fn in variants:
+            out.zero_()
+            call(fn)
+            torch.cuda.synchronize()
+            errs[name] = (out - ref).abs().max().item()
+            held = torch.allclose(out, ref, **TOL[torch.float32])
+            if lse is not None:
+                errs[name] = max(errs[name],
+                                 (lse - lse_ref).abs().max().item())
+                held &= torch.allclose(lse, lse_ref, **TOL[torch.float32])
+            if not held:
+                wrong.append((label, name))
+        times = {name: [] for name, _ in variants}
+        others, mine = variants[:-1], variants[-1:]
+        for name, fn in others + mine + mine + others[::-1]:
+            times[name].append(device_ms(lambda: call(fn), K1_EVENTS))
+        bound = attention_bound_ms(b, lq, lk, ck, cv, 4, with_lse=with_lse)
+        row = {"shape": f"{label} B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}"
+                        f"{' lse' if with_lse else ''}",
+               "bound_ms": bound[0],
+               "ms": {name: statistics.median(t) for name, t in times.items()},
+               "max_abs_err": errs}
+        results.append(row)
+        log(f"k1 A/B {row['shape']} float32, device ms (profiler, in turns):"
+            + "".join(f" {name} {[round(x, 4) for x in t]}"
+                      for name, t in times.items())
+            + f"; bound {bound[0]:.4f} ms; checkout at "
+            f"{100 * bound[0] / row['ms']['checkout']:.1f} % of it; max abs "
+            f"error against the plain version (o and lse) {errs}")
+        del q, k, v, out, lse, ref, lse_ref
+    if wrong:
+        raise AssertionError(f"K1 builds off the plain version beyond "
+                             f"{TOL[torch.float32]}: {wrong}")
+    return results
+
+
 def main():
+    ab = sys.argv[1:]
+    if ab and (ab[0] != "--k1-ab" or len(ab) < 2):
+        print("usage: chip_smoke.py [--k1-ab OTHER_attention_fwd.cu ...]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1582,11 +1971,21 @@ def main():
             for kernel, used, spill in ptxas_usage(text):
                 log(f"  ptxas {name} {kernel}: {used}; {spill}")
 
+        if ab:
+            print(json.dumps({"k1_ab": k1_ab(ab[1:])}))
+            print(nvidia_smi_line())
+            return 0
         errs = phase_kernels(dev)
         perrs = phase_parity_kernels(dev)
+        phase_no_sync(dev)
+        # the kernels' device times before the train steps' long profiles,
+        # after which the profiler was seen to drop kernel events
+        records = time_attention(dev, errs) + time_parity_kernels(dev, perrs)
+        gc.collect()
+        torch.cuda.empty_cache()
         app, serve_launches = phase_serve()
         check_generator(app)
-        phase_times(app, dev)
+        phase_times(app)
         del app
         trainer, launches, _ = phase_train(dev)
         log(f"serve path launches {serve_launches}; train path launches "
@@ -1596,7 +1995,6 @@ def main():
         del trainer, batch
         gc.collect()
         torch.cuda.empty_cache()
-        records = time_attention(dev, launches, errs)
 
         par, par_launches, _ = phase_parity_train(TRAIN_DIR / "tartans512.npy")
         log(f"parity path launches {par_launches} (the kernels line counts "
@@ -1608,9 +2006,8 @@ def main():
         plain = hold_parity(par, dev, batch, z_d, z_g)
         time_parity_step(par, plain, batch, z_d, z_g)
         del par, plain, batch
-        gc.collect()
-        torch.cuda.empty_cache()
-        records += time_parity_kernels(dev, par_launches, perrs)
+        for rec in records:
+            rec["launches"] = {**launches, **par_launches}[rec["name"]]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import consts
+
 # The reference's module switches (``ops/parity.py:58,68``), read when a
 # parity block runs: MERGED_TAP takes ``conv_parity2`` with the 2x2 packers
 # instead of the 3x3 packed conv; FUSED_G takes the merged-tap kernel
@@ -128,7 +130,10 @@ def _selection(kind: str) -> np.ndarray:
 
 
 def _sel(kind, w):
-    return torch.as_tensor(_selection(kind), dtype=w.dtype, device=w.device)
+    """The selection tensor of ``kind`` in ``w``'s dtype on its device,
+    made once (``ops/consts.py``): no host copy after the first call."""
+    return consts.device_constant(("parity", kind),
+                                  lambda: _selection(kind), w.dtype, w.device)
 
 
 def pack_up_conv(w):
@@ -190,7 +195,9 @@ def pack_point_conv(w):
     """(Cout, Cin, 1, 1) -> (4*Cout, 4*Cin, 1, 1) block-diagonal weights:
     output parity q reads only input parity q."""
     co, ci = w.shape[:2]
-    eye = torch.eye(4, dtype=w.dtype, device=w.device)
+    eye = consts.device_constant(("parity", "eye4"),
+                                 lambda: np.eye(4, dtype=np.float32),
+                                 w.dtype, w.device)
     out = torch.einsum("pq,oi->poqi", eye, w.reshape(co, ci))
     return out.reshape(4 * co, 4 * ci, 1, 1)
 

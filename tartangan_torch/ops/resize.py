@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import consts
+
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of NCHW (G block upsample path)."""
@@ -68,8 +70,12 @@ def _linear_interp_matrix(n_in: int, n_out: int,
 
 
 def _interp(n_in, n_out, align_corners, like):
-    return torch.as_tensor(_linear_interp_matrix(n_in, n_out, align_corners),
-                           dtype=like.dtype, device=like.device)
+    """``_linear_interp_matrix`` in ``like``'s dtype on its device, made
+    once (``ops/consts.py``): no host copy after the first call."""
+    return consts.device_constant(
+        ("interp", n_in, n_out, align_corners),
+        lambda: _linear_interp_matrix(n_in, n_out, align_corners),
+        like.dtype, like.device)
 
 
 def downsample_bilinear_half_parity(xp: torch.Tensor, c: int,

@@ -84,6 +84,106 @@ def test_attention_kernel_lse_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 1, 1024, 8, 32, 1),       # one query row
+    (3, 257, 37, 8, 32, 1),       # Lq past a CTA's rows by one; Lk < a tile
+    (2, 1000, 333, 8, 32, 1),     # ragged Lq and Lk
+    (4, 1000, 1, 8, 32, 1),       # one key
+    (2, 257, 333, 5, 3, 1),       # Ck 5, Cv 3: the 4-byte copies
+    (1, 4096, 1024, 8, 32, 1),    # B 1 at the G shape: keys split over CTAs
+    (1, 4096, 1024, 32, 128, 1),  # the same with '1024''s wide heads
+    (8, 4096, 1024, 8, 32, 6),    # large logits: many lazy rescales
+    (1, 4096, 1024, 8, 32, 6),    # the same with the keys split
+    (3, 1000, 333, 7, 40, 6),     # the same, ragged
+])
+def test_attention_kernel_edges(cuda, shape, dtype):
+    """K1's output and lse at the edges of its tiling and launch choices,
+    and with large logits (q scaled), where rows rescale many times."""
+    b, lq, lk, ck, cv, scale = shape
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv)))
+    q = (q.float() * scale).to(dtype)
+    before = attention.launches
+    out, lse = _fwd(q, k, v, with_lse=True)
+    served = attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+    assert out.dtype == dtype and out.shape == (b, lq, cv)
+    ref = attention_plain(q, k, v).float()
+    torch.testing.assert_close(out.float(), ref, **TOL[dtype])
+    assert torch.equal(served, out)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 1])
+def test_attention_kernel_is_deterministic(cuda, b):
+    """No atomics: two launches at the G shape, and at B 1 where the keys
+    are split over CTAs and merged, give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen)
+               for s in ((b, 4096, 8), (b, 1024, 8), (b, 1024, 32)))
+    first = _fwd(q, k, v, with_lse=True)
+    second = _fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_parity_blocks_and_attention_do_not_sync(cuda, monkeypatch):
+    """After a warm-up call, a forward and backward of the parity blocks
+    (G on K3, the fused G block on K4/K5, D through both parity
+    downsamplers and the packers) and of the attention (K1, K2) make no
+    call that synchronizes the stream with the host."""
+    from tartangan_torch.models.blocks import (
+        FusedResidualGeneratorBlock,
+        ParityResidualDiscriminatorBlock,
+        ParityResidualGeneratorBlock,
+    )
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.parity_conv import merged_tap_conv
+    monkeypatch.setattr(P, "FUSED_G", True)
+    torch.manual_seed(0)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    blocks = [(ParityResidualGeneratorBlock(16, 8), (2, 16, 8, 8)),
+              (FusedResidualGeneratorBlock(16, 16), (2, 16, 4, 4)),
+              (ParityResidualDiscriminatorBlock(
+                  4, 8, accept_parity=True, emit_parity=True),
+               (2, 16, 16, 16))]
+    blocks = [(m.to(cuda), torch.randn(s, device=cuda, generator=gen)
+               .requires_grad_()) for m, s in blocks]
+    d_to_plain = ParityResidualDiscriminatorBlock(
+        8, 16, accept_parity=True).to(cuda)
+    qkv = [torch.randn(s, device=cuda, generator=gen).requires_grad_()
+           for s in ((2, 64, 8), (2, 16, 8), (2, 16, 32))]
+    counters = (attention, attention_bwd, merged_tap_conv, G.gblock_a,
+                G.gblock_b)
+
+    def run():
+        outs = [m(x, train=True) for m, x in blocks]
+        outs.append(d_to_plain(outs[-1], train=True))
+        outs.append(attention(*qkv))
+        sum(o.float().square().mean() for o in outs).backward()
+
+    run()
+    torch.cuda.synchronize()
+    before = [f.launches for f in counters]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == \
+        [1, 1, 2, 1, 1]
+
+
+@pytest.mark.cuda
 def test_attention_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 8, 65, device=cuda)
     with pytest.raises(ValueError, match="Ck"):
