@@ -3,11 +3,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k1-ab OTHER/attention_fwd.cu [...]
+    python3 chip_smoke.py --gblock-ab OTHER_DIR [...]
 
 The second form only builds the kernels and times K1 built from each given
 source (the same C entry point, e.g. a parent commit's) against the
 checkout's at K1's four main-path shapes (and at G with logits large
-enough for many lazy rescales), in turns on the same inputs.
+enough for many lazy rescales), in turns on the same inputs. The third
+does the same for K4 and K5 built from ``gblock.cu`` in each OTHER_DIR (a
+source with the checkout's C arguments, or one of the parent commit's,
+which took packed weights: its packing then runs in PyTorch as its wrapper
+did), at the two '512thin' fused blocks' shapes, with each one's error
+against the plain version in float32 and float64; it also measures the
+card's TF32 ``mma.sync`` rate, K4/K5's yardstick.
 
 Every kernel time is the kernel's own device time, read from
 ``torch.profiler`` (the durations of its device events over 20 launches);
@@ -31,9 +38,11 @@ printing a result:
    second order, at the '512thin' discriminator's shape. Then the parity kernels: K3 (merged-tap parity
    conv, both modes, with the bias) at the eight '512thin' G shapes and
    two ragged ones (one non-square across both tile edges), K4
-   and K5 (the fused G block) at both fused blocks' shapes and one with a
-   projection, K4's sums too, and the two parity autograd Functions'
-   gradients against autograd through the plain forms. K1 also at its
+   and K5 (the fused G block) at both fused blocks' shapes (the identity
+   shortcut), with a projection and at two ragged shapes, K4's sums too,
+   each also against float64 and launched twice for the same bits, and the
+   two parity autograd Functions' gradients against autograd through the
+   plain forms. K1 also at its
    edges (ragged Lq and Lk, Lk 1, Ck and Cv not multiples of 4, B 1 with
    its keys split over CTAs, logits large enough for many lazy rescales),
    and two launches bit-identical. TF32 is off
@@ -50,7 +59,9 @@ printing a result:
    delta launch included), with the SM clock under K1 and K2 at G; then K3,
    K4 and K5 at the parity path's shapes (``F.conv2d`` of the 3x3-packed
    form with the bias as K3's library call; for K3 also the share of the
-   bound and the ratio to ``F.conv2d``).
+   bound and the ratio to ``F.conv2d``; for K4 and K5 the bound of their
+   3xTF32 tensor-core products beside the FMA bound, and ``F.conv2d`` of
+   the 3x3-packed conv alone as ``conv_only_ms``).
 5. serve: writes a full-width '512thin' generator (random weights from a
    seeded ``torch.Generator``, every attention ``gamma`` nonzero) as a run
    directory in the JAX trainer's layout, serves it in-process with
@@ -122,6 +133,9 @@ RUN_DIR = ROOT / "build" / "chip_smoke_run"
 # HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# TF32 on the tensor cores (dense); K4 and K5 do each float32 product as
+# three TF32 products (3xTF32)
+PEAK_TF32_FLOPS = 495e12
 
 # kernel vs plain version on the card. float32: the kernel takes exp as
 # exp2 of log2(e)-scaled logits and sums in another order than cuBLAS;
@@ -209,8 +223,12 @@ def kernel_names(*names):
 K1_EVENTS = (kernel_names("attention_fwd_kernel"), 1)
 K2_EVENTS = (kernel_names("delta_kernel", "dq_kernel", "dkdv_kernel"), 3)
 K3_EVENTS = (kernel_names("tile_kernel"), 1)
-K4_EVENTS = (kernel_names("gemm_kernel", "reduce_partials"), 2)
-K5_EVENTS = (kernel_names("gemm_kernel"), 1)
+K4_EVENTS = (kernel_names("pack_weights", "conv_kernel", "reduce_partials"), 3)
+K5_EVENTS = (kernel_names("pack_weights", "conv_kernel"), 2)
+# the parent commit's K4/K5 (``--gblock-ab``): one GEMM launch each, K4's
+# reduce beside it; their weight packing ran as PyTorch ops
+K4_EVENTS_PARENT = (kernel_names("gemm_kernel", "reduce_partials"), 2)
+K5_EVENTS_PARENT = (kernel_names("gemm_kernel"), 1)
 
 
 def device_ms(fn, events, iters=20):
@@ -512,7 +530,9 @@ K3_SHAPES = [("block 3 (32x32)", 64, 32, 32, 128, 64),
 # identity shortcut, and one with a projection
 GBLOCK_SHAPES = [("block 1 (8x8)", 64, 8, 128, 128),
                  ("block 2 (16x16)", 64, 16, 128, 128),
-                 ("projection", 8, 12, 96, 40)]
+                 ("projection", 8, 12, 96, 40),
+                 ("ragged identity", 2, 11, 6, 6),
+                 ("ragged projection", 3, 9, 5, 7)]
 # the parity kernels against their plain versions on the card, float32:
 # each error is divided by the plain output's max-abs (a K = 4*Ci term sum,
 # up to 1024 products, in another order than cuDNN's)
@@ -541,13 +561,26 @@ def gblock_params(cin, cout, dev, gen, scale=0.05):
          "o2": 0.2 * torch.randn(cout, device=dev, generator=gen)}
     p["w1"] *= scale
     p["w2"] *= scale
-    if cin == cout:
-        p["wp"] = torch.eye(cin, device=dev)
-        p["bp"] = torch.zeros(cout, device=dev)
+    if cin == cout:  # the identity shortcut, as the model passes it
+        p["wp"] = p["bp"] = None
     else:
         p["wp"] = scale * torch.randn(cin, cout, device=dev, generator=gen)
         p["bp"] = torch.randn(cout, device=dev, generator=gen)
     return p
+
+
+def gblock_f64_errors(G, x, p, m1, v1, y1r, m2, v2, outs):
+    """K4's y1p and K5's out_p (``outs``) against their plain versions in
+    float64 on the same float32 inputs (K5 fed the plain float32 y1p and
+    statistics): (K4 error, K5 error), each absolute."""
+    def f64(*ts):
+        return [None if t is None else t.double() for t in ts]
+    y64, _ = G.gblock_a_plain(*f64(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                   p["b1"]))
+    o64 = G.gblock_b_plain(*f64(y1r, x, m2, v2, p["s2"], p["o2"], p["w2"],
+                                p["b2"], p["wp"], p["bp"]))
+    return tuple((a.double() - r).abs().max().item()
+                 for a, r in zip(outs, (y64, o64)))
 
 
 def phase_parity_kernels(dev):
@@ -604,11 +637,19 @@ def phase_parity_kernels(dev):
             errs.append(f"{name} {err * scale:.3e} ({err:.3e} of max-abs)")
             _assert_scaled(f"gblock {label} {name}", out, ref)
             key = "gblock_b" if name == "out_p" else "gblock_a"
-            if label != "projection" and name in ("y1p", "out_p"):
+            if label.startswith("block") and name in ("y1p", "out_p"):
                 worst[key] = max(worst[key], err * scale.item())
         log(f"kernel gblock_a/gblock_b {label} x {tuple(x.shape)} Cout "
             f"{cout}: max_abs_err {', '.join(errs)} (tolerance {TOL_PARITY} "
-            f"after dividing by max-abs)")
+            f"after dividing by max-abs); against float64: "
+            f"{gblock_f64_errors(G, x, p, m1, v1, y1r, m2, v2, (y1p, outb))}")
+        # no float atomics: a second launch gives the same bits
+        again = G.gblock_a(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        againb = G.gblock_b(y1r, x, m2, v2, p["s2"], p["o2"], p["w2"],
+                            p["b2"], p["wp"], p["bp"])
+        if not (torch.equal(again[0], y1p) and torch.equal(again[1], stats)
+                and torch.equal(againb, outb)):
+            raise AssertionError(f"gblock {label}: two launches differ")
     check_parity_functions(dev)
     return worst
 
@@ -645,12 +686,13 @@ def check_parity_functions(dev):
     p = gblock_params(128, 128, dev, gen)
     x = torch.randn(8, 16, 16, 128, device=dev, generator=gen)
     cot = torch.randn(8, 32, 32, 128, device=dev, generator=gen)
-    names = ["x"] + list(G.PARAMS)
+    # the identity shortcut (wp, bp None) has no gradient of its own
+    names = ["x"] + [k for k in G.PARAMS if p[k] is not None]
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in [x] +
-                  [p[k] for k in G.PARAMS]]
-        out = fn(leaves[0], dict(zip(G.PARAMS, leaves[1:])))
+                  [p[k] for k in names[1:]]]
+        out = fn(leaves[0], dict(zip(names[1:], leaves[1:])))
         return (out,) + torch.autograd.grad((out * cot).sum(), leaves)
 
     ours = grads(lambda a, q: G.fused_gblock(a, q)[0])
@@ -1563,11 +1605,19 @@ def _conv_bound_ms(macs, nbytes):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def _tf32x3_bound_ms(macs, nbytes):
+    """The bound of ``macs`` float32 products done as three TF32 products
+    each on the tensor cores, against the bytes."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 3 * 2 * macs / PEAK_TF32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
 def time_parity_kernels(dev, errs):
     """K3 at the eight shapes of one '512thin' G forward and K4/K5 at the
     two fused blocks' shapes: the kernel's device time (profiler; K4's
-    includes its sums' reduce launch), the wrapper's time a call (CUDA
-    events: packing the weights included), plain version, the library call
+    includes its pack and reduce launches, K5's its pack launch), the
+    wrapper's time a call (CUDA events), plain version, the library call
     (K3: ``F.conv2d`` of the 3x3-packed form with the bias, as K3 adds it)
     and the bound; each summed over the launches of one G forward for the
     kernels line (whose launches, the parity path's, ``main`` fills in)."""
@@ -1644,27 +1694,38 @@ def time_parity_kernels(dev, errs):
         # the shortcut's 4*Cin*Cout MACs a position count only with a
         # projection; the identity (both fused blocks) is an add of x, whose
         # bytes are counted
-        short = 0 if torch.equal(p["wp"], torch.eye(cin, device=dev)) \
-            else 4 * cin
-        for name, kern, plain, args, events, macs, nbytes in (
+        short = 0 if p["wp"] is None else 4 * cin
+        # conv_only: F.conv2d of the 3x3-packed conv alone, on an input of
+        # the same shape (no BatchNorm, statistics or shortcut): a yardstick
+        # of less work, used nowhere in the port
+        xa = x.permute(0, 3, 1, 2)
+        xb = y1p.permute(0, 3, 1, 2)
+        wa, wb = P.pack_up_conv(p["w1"]), P.pack_full_conv(p["w2"])
+        for name, kern, plain, args, events, macs, nbytes, conv in (
                 ("gblock_a", G.gblock_a, G.gblock_a_plain, args_a, K4_EVENTS,
-                 pos * 16 * cin * cout, 4 * (x.numel() + y1p.numel())),
+                 pos * 16 * cin * cout, 4 * (x.numel() + y1p.numel()),
+                 lambda: F.conv2d(xa, wa, padding=1)),
                 ("gblock_b", G.gblock_b, G.gblock_b_plain, args_b, K5_EVENTS,
                  pos * (36 * cout + short) * cout,
-                 4 * (2 * y1p.numel() + x.numel()))):
+                 4 * (2 * y1p.numel() + x.numel()),
+                 lambda: F.conv2d(xb, wb, padding=1))):
             t = [cuda_ms(lambda: plain(*args)), cuda_ms(lambda: kern(*args)),
                  cuda_ms(lambda: kern(*args)), cuda_ms(lambda: plain(*args))]
             t_dev = [device_ms(lambda: kern(*args), events),
                      device_ms(lambda: kern(*args), events)]
-            bound = _conv_bound_ms(macs, nbytes)
+            conv_ms = cuda_ms(conv)
+            fma = _conv_bound_ms(macs, nbytes)
+            tc = _tf32x3_bound_ms(macs, nbytes)
+            ms = statistics.median(t_dev)
             log(f"time {name} {label} x {tuple(x.shape)} Cout {cout}: kernel "
                 f"device {t_dev[0]:.4f}/{t_dev[1]:.4f} ms (profiler), call "
                 f"{t[1]:.4f}/{t[2]:.4f} ms (CUDA events), plain "
-                f"{t[0]:.4f}/{t[3]:.4f} ms, bound {bound[0]:.4f} ms "
-                f"({bound[1]}, {2 * macs / 1e9:.2f} GFLOP); kernel at "
-                f"{100 * bound[0] / statistics.median(t_dev):.1f} % of the "
-                f"bound")
-            add_times(name, t, t_dev, macs, nbytes)
+                f"{t[0]:.4f}/{t[3]:.4f} ms, conv only {conv_ms:.4f} ms; "
+                f"bounds ({2 * macs / 1e9:.2f} GFLOP): FMA {fma[0]:.4f} ms "
+                f"({fma[1]}), 3xTF32 {tc[0]:.4f} ms ({tc[1]}); kernel at "
+                f"{100 * fma[0] / ms:.1f} % / {100 * tc[0] / ms:.1f} % of "
+                f"them")
+            add_times(name, t, t_dev, macs, nbytes, conv_ms)
     records = []
     for name, src, replaces in (
             ("parity_conv", "parity_conv.cu",
@@ -1673,18 +1734,28 @@ def time_parity_kernels(dev, errs):
             ("gblock_b", "gblock.cu",
              "tartangan_tpu/ops/pallas/gblock.py:234")):
         ms, plain_ms, lib, macs, nbytes, call_ms = totals[name]
-        bound_ms, bound_by = _conv_bound_ms(macs, nbytes)
-        records.append({
+        k3 = name == "parity_conv"
+        # K3 multiplies on the FMA pipe; K4/K5 as 3xTF32 on the tensor
+        # cores, with their FMA bound beside it
+        bound_ms, bound_by = (_conv_bound_ms if k3 else _tf32x3_bound_ms)(
+            macs, nbytes)
+        rec = {
             "name": name, "route": "cuda",
             "source": f"tartangan_torch/csrc/{src}", "replaces": replaces,
             "launches": None, "max_abs_err": errs[name],
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib if name == "parity_conv" else None})
+            "library_ms": lib if k3 else None}
+        if not k3:
+            rec["bound_fma_ms"] = _conv_bound_ms(macs, nbytes)[0]
+            rec["conv_only_ms"] = lib
+        records.append(rec)
         log(f"kernels line {name}: summed over the launches of one G "
             f"forward: kernel device {ms:.4f} ms, call {call_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms"
-            + (f", F.conv2d {lib:.4f} ms" if name == "parity_conv" else ""))
+            + (f", F.conv2d {lib:.4f} ms" if k3 else
+               f" (FMA {rec['bound_fma_ms']:.4f} ms), conv only "
+               f"{lib:.4f} ms"))
     return records
 
 
@@ -1939,11 +2010,290 @@ def k1_ab(sources):
     return results
 
 
+def build_gblock_variants(dirs):
+    """The K4/K5 libraries of other sources (``gblock.cu`` in each of
+    ``dirs``, with any header beside it), built in parallel with the port's
+    nvcc flags into ``build/gblock_ab/`` and loaded: a source whose
+    library exports ``tt_gblock_workspace`` takes the checkout's C
+    arguments (raw weights); one that does not, the parent commit's
+    (packed weights, ``tt_gblock_partial_rows``). Logs their ptxas use."""
+    from tartangan_torch.ops import build
+    out_dir = ROOT / "build" / "gblock_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, d in enumerate(dirs):
+        out, src = out_dir / f"libv{i}.so", Path(d) / "gblock.cu"
+        procs.append((str(d), src, out, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, src, out, proc in procs:
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {src}:\n{text}")
+        for kernel, used, spill in ptxas_usage(text):
+            log(f"  ptxas {src} {kernel}: {used}; {spill}")
+        lib = ctypes.CDLL(str(out))
+        if hasattr(lib, "tt_gblock_workspace"):
+            for fn, (argtypes, restype) in build.SIGNATURES["gblock"].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+        else:
+            lib.tt_gblock_partial_rows.argtypes = [I] * 4
+            lib.tt_gblock_partial_rows.restype = LL
+            lib.tt_gblock_a.argtypes = [P] * 8 + [LL, P] + [I] * 5 + [P]
+            lib.tt_gblock_a.restype = I
+            lib.tt_gblock_b.argtypes = [P] * 9 + [I] * 5 + [P]
+            lib.tt_gblock_b.restype = I
+        libs.append((name, lib))
+    return libs
+
+
+def raw_gblock_a(lib, x, m1, v1, s1, o1, w1, b1):
+    """K4 of a library with the checkout's C arguments, as
+    ``ops.gblock.gblock_a`` calls it (the scratch sized by the library)."""
+    b, h, w, cin = x.shape
+    cout = w1.shape[0]
+    y1p = torch.empty((b, h, w, 4 * cout), device=x.device)
+    stats = torch.empty((2, 4 * cout), device=x.device)
+    n = lib.tt_gblock_workspace(0, b, h, w, cin, cout)
+    work = torch.empty(n, device=x.device)
+    err = lib.tt_gblock_a(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                          m1.data_ptr(), v1.data_ptr(), s1.data_ptr(),
+                          o1.data_ptr(), y1p.data_ptr(), stats.data_ptr(),
+                          work.data_ptr(), n, b, h, w, cin, cout,
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K4 failed: cudaError {err}")
+    return y1p, stats
+
+
+def raw_gblock_b(lib, y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
+    """K5 of a library with the checkout's C arguments."""
+    b, h, w, cin = x.shape
+    cout = w2.shape[0]
+    out = torch.empty((b, h, w, 4 * cout), device=x.device)
+    n = lib.tt_gblock_workspace(1, b, h, w, cin, cout)
+    work = torch.empty(n, device=x.device)
+    err = lib.tt_gblock_b(y1p.data_ptr(), x.data_ptr(), w2.data_ptr(),
+                          b2.data_ptr(), None if wp is None else wp.data_ptr(),
+                          None if bp is None else bp.data_ptr(),
+                          m2.data_ptr(), v2.data_ptr(), s2.data_ptr(),
+                          o2.data_ptr(), out.data_ptr(), work.data_ptr(), n,
+                          b, h, w, cin, cout,
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K5 failed: cudaError {err}")
+    return out
+
+
+def other_gblock_a(lib, x, m1, v1, s1, o1, w1, b1):
+    """K4 of the other build, with its wrapper's work as that commit's
+    ``ops/gblock.py`` did it: the merged-tap weights packed and
+    transposed, the BatchNorm multiplier and the tiled bias made by
+    PyTorch ops at every call."""
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.gblock import BN_EPS
+    b, h, w, cin = x.shape
+    cout = w1.shape[0]
+    w1p = P.pack_up_conv2(w1).permute(2, 3, 1, 0).contiguous()
+    bias = b1.repeat(4).contiguous()
+    mul = (torch.rsqrt(v1 + BN_EPS) * s1).contiguous()
+    y1p = torch.empty((b, h, w, 4 * cout), device=x.device)
+    rows = lib.tt_gblock_partial_rows(b, h, w, cout)
+    partial = torch.empty((rows, 2, 4 * cout), device=x.device)
+    stats = torch.empty((2, 4 * cout), device=x.device)
+    err = lib.tt_gblock_a(x.data_ptr(), w1p.data_ptr(), bias.data_ptr(),
+                          m1.data_ptr(), mul.data_ptr(), o1.data_ptr(),
+                          y1p.data_ptr(), partial.data_ptr(), rows,
+                          stats.data_ptr(), b, h, w, cin, cout,
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the other K4 failed: cudaError {err}")
+    return y1p, stats
+
+
+def other_gblock_b(lib, y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
+    """K5 of the other build, driven as that commit's wrapper did: the
+    identity shortcut as wp = I, bp = 0, the weights and tiled vectors
+    made by PyTorch ops at every call."""
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.gblock import BN_EPS
+    b, h, w, cin = x.shape
+    cout = w2.shape[0]
+    if wp is None:
+        wp = torch.eye(cin, device=x.device)
+        bp = torch.zeros(cout, device=x.device)
+    w2p = P.pack_full_conv2(w2).permute(2, 3, 1, 0).contiguous()
+    wp = wp.contiguous()
+    bias = (b2 + bp).repeat(4).contiguous()
+    mean = m2.repeat(4).contiguous()
+    mul = (torch.rsqrt(v2 + BN_EPS) * s2).repeat(4).contiguous()
+    add = o2.repeat(4).contiguous()
+    out = torch.empty((b, h, w, 4 * cout), device=x.device)
+    err = lib.tt_gblock_b(y1p.data_ptr(), x.data_ptr(), w2p.data_ptr(),
+                          wp.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+                          mul.data_ptr(), add.data_ptr(), out.data_ptr(), b,
+                          h, w, cin, cout,
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the other K5 failed: cudaError {err}")
+    return out
+
+
+# A yardstick for K4/K5: the rate of mma.sync.m16n8k8 TF32 products on
+# this card (independent accumulators, operands in registers, no loads)
+MMA_RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+template <int CHAINS>
+__global__ void mma_rate_kernel(float* out, int iters) {
+  uint32_t a[4], b0 = threadIdx.x, b1 = threadIdx.x * 3u;
+  for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * (i + 1);
+  float c[CHAINS][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(c[k][0]), "+f"(c[k][1]), "+f"(c[k][2]), "+f"(c[k][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+  }
+  float t = 0.f;
+  for (int k = 0; k < CHAINS; ++k) t += c[k][0] + c[k][1] + c[k][2] + c[k][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = t;
+}
+extern "C" int mma_rate(float* out, int blocks, int threads, int chains,
+                        int iters) {
+  if (chains == 4) mma_rate_kernel<4><<<blocks, threads>>>(out, iters);
+  else if (chains == 8) mma_rate_kernel<8><<<blocks, threads>>>(out, iters);
+  else mma_rate_kernel<16><<<blocks, threads>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def mma_tf32_rate():
+    """TFLOP/s of TF32 mma.sync.m16n8k8 on the card (2 x 16 x 8 x 8 flop an
+    instruction) for a few warps an SM and independent accumulators a
+    warp, by CUDA events; logs each and returns the largest."""
+    from tartangan_torch.ops import build
+    out_dir = ROOT / "build" / "gblock_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib_path = out_dir / "mma_rate.cu", out_dir / "libmma_rate.so"
+    src.write_text(MMA_RATE_SRC)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(lib_path)).mma_rate
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(sms * 4 * 512, device="cuda")
+    iters, best = 2000, 0.0
+    for warps_sm, blocks_sm, chains in ((8, 1, 4), (8, 1, 8), (8, 1, 16),
+                                        (16, 2, 8), (32, 4, 8)):
+        threads = 32 * warps_sm // blocks_sm
+        ms = cuda_ms(lambda: fn(out.data_ptr(), sms * blocks_sm, threads,
+                                chains, iters), iters=3, reps=5)
+        tflops = (sms * warps_sm * iters * chains * 2 * 16 * 8 * 8
+                  / (ms * 1e-3) / 1e12)
+        best = max(best, tflops)
+        log(f"mma.sync m16n8k8 TF32: {warps_sm} warps an SM, {chains} "
+            f"accumulators a warp: {tflops:.1f} TFLOP/s ({ms:.4f} ms)")
+    return best
+
+
+def gblock_ab(dirs):
+    """K4 and K5 built from each of ``dirs`` (``build_gblock_variants``;
+    e.g. the parent commit's sources) against the checkout's at the two
+    '512thin' fused blocks' shapes, on the same inputs: each one's error
+    against the plain float32 and float64 versions, then device time
+    (profiler) and call time (CUDA events) in turns: the others, the
+    checkout's twice, the others again. Returns the JSON-ready rows."""
+    from tartangan_torch.ops import gblock as G
+    variants = build_gblock_variants(dirs)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows, wrong = [], []
+    for label, b, h, cin, cout in GBLOCK_SHAPES[:2]:
+        p = gblock_params(cin, cout, "cuda", gen)
+        x = torch.randn(b, h, h, cin, device="cuda", generator=gen)
+        m1, v1 = G._moments(x)
+        args_a = (x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        y1r, st = G.gblock_a_plain(*args_a)
+        n = 4 * b * h * h
+        m2 = st.reshape(2, 4, cout).sum(1)[0] / n
+        v2 = st.reshape(2, 4, cout).sum(1)[1] / n - m2 ** 2
+        args_b = (y1r, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],
+                  p["wp"], p["bp"])
+        refb = G.gblock_b_plain(*args_b)
+        calls = {"gblock_a": {}, "gblock_b": {}}
+        for name, lib in variants:
+            raw = hasattr(lib, "tt_gblock_workspace")
+            calls["gblock_a"][name] = (
+                (lambda lib=lib: raw_gblock_a(lib, *args_a)) if raw else
+                (lambda lib=lib: other_gblock_a(lib, *args_a)),
+                K4_EVENTS if raw else K4_EVENTS_PARENT)
+            calls["gblock_b"][name] = (
+                (lambda lib=lib: raw_gblock_b(lib, *args_b)) if raw else
+                (lambda lib=lib: other_gblock_b(lib, *args_b)),
+                K5_EVENTS if raw else K5_EVENTS_PARENT)
+        calls["gblock_a"]["checkout"] = (lambda: G.gblock_a(*args_a),
+                                         K4_EVENTS)
+        calls["gblock_b"]["checkout"] = (lambda: G.gblock_b(*args_b),
+                                         K5_EVENTS)
+        for name, fns in calls.items():
+            errs = {}
+            ref = y1r if name == "gblock_a" else refb
+            for v, (fn, _) in fns.items():
+                out = fn()
+                out = out[0] if name == "gblock_a" else out
+                torch.cuda.synchronize()
+                k4, k5 = gblock_f64_errors(
+                    G, x, p, m1, v1, y1r, m2, v2,
+                    (out, refb) if name == "gblock_a" else (y1r, out))
+                errs[v] = {"f32": (out - ref).abs().max().item(),
+                           "f64": k4 if name == "gblock_a" else k5}
+                if _scaled_err(out, ref)[0] > TOL_PARITY["atol"]:
+                    wrong.append((label, name, v))
+            dev_ms = {v: [] for v in fns}
+            call_ms = {v: [] for v in fns}
+            others = [v for v in fns if v != "checkout"]
+            for v in others + ["checkout", "checkout"] + others[::-1]:
+                fn, events = fns[v]
+                dev_ms[v].append(device_ms(fn, events))
+                call_ms[v].append(cuda_ms(fn))
+            macs = b * h * h * (16 * cin if name == "gblock_a"
+                                else 36 * cout) * cout
+            nbytes = 4 * (x.numel() + y1r.numel()) if name == "gblock_a" \
+                else 4 * (2 * y1r.numel() + x.numel())
+            row = {"kernel": name, "shape": f"{label} B{b} Cin{cin} Cout"
+                                            f"{cout}",
+                   "bound_fma_ms": _conv_bound_ms(macs, nbytes)[0],
+                   "bound_3xtf32_ms": _tf32x3_bound_ms(macs, nbytes)[0],
+                   "ms": {v: statistics.median(t) for v, t in dev_ms.items()},
+                   "call_ms": {v: statistics.median(t)
+                               for v, t in call_ms.items()},
+                   "max_abs_err": errs}
+            rows.append(row)
+            log(f"gblock A/B {name} {row['shape']}: device ms (profiler, in "
+                f"turns) {dev_ms}; call ms {call_ms}; bounds FMA "
+                f"{row['bound_fma_ms']:.4f} ms, 3xTF32 "
+                f"{row['bound_3xtf32_ms']:.4f} ms; max abs error against "
+                f"the plain float32 and float64 versions {errs}")
+    if wrong:
+        raise AssertionError(f"gblock builds off the plain version beyond "
+                             f"{TOL_PARITY}: {wrong}")
+    return rows
+
+
 def main():
     ab = sys.argv[1:]
-    if ab and (ab[0] != "--k1-ab" or len(ab) < 2):
-        print("usage: chip_smoke.py [--k1-ab OTHER_attention_fwd.cu ...]",
-              file=sys.stderr)
+    if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
+                   or (ab[0] == "--gblock-ab" and len(ab) >= 2)):
+        print("usage: chip_smoke.py [--k1-ab OTHER_attention_fwd.cu ... | "
+              "--gblock-ab OTHER_DIR ...]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1971,6 +2321,12 @@ def main():
             for kernel, used, spill in ptxas_usage(text):
                 log(f"  ptxas {name} {kernel}: {used}; {spill}")
 
+        if ab and ab[0] == "--gblock-ab":
+            rate = mma_tf32_rate()
+            print(json.dumps({"gblock_ab": gblock_ab(ab[1:]),
+                              "mma_tf32_tflops": rate}))
+            print(nvidia_smi_line())
+            return 0
         if ab:
             print(json.dumps({"k1_ab": k1_ab(ab[1:])}))
             print(nvidia_smi_line())

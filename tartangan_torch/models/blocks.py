@@ -501,14 +501,12 @@ class FusedResidualGeneratorBlock(nn.Module):
             default_init_(self.project_kernel, self.project_bias, generator)
 
     def _params(self):
+        """The ops' flat parameters; ``wp`` and ``bp`` are None for the
+        identity shortcut (Cin == Cout), which K5 adds as x."""
+        wp = bp = None
         if hasattr(self, "project_kernel"):
             wp = self.project_kernel[:, :, 0, 0].t()
             bp = self.project_bias
-        else:  # identity shortcut as an I-projection (the same math)
-            wp = torch.eye(self.bn1_scale.shape[0],
-                           dtype=self.conv1_kernel.dtype,
-                           device=self.conv1_kernel.device)
-            bp = torch.zeros_like(self.conv1_bias)
         return {"w1": self.conv1_kernel, "b1": self.conv1_bias,
                 "w2": self.conv2_kernel, "b2": self.conv2_bias,
                 "wp": wp, "bp": bp, "s1": self.bn1_scale, "o1": self.bn1_bias,

@@ -26,6 +26,17 @@ SOURCES = {"attention_fwd": "attention_fwd.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points whose argument types ``load`` sets once: (argtypes,
+# restype); pointers and the stream as void*, so ctypes does not cut them
+SIGNATURES = {
+    "gblock": {
+        "tt_gblock_a": ([_P] * 10 + [_LL] + [_I] * 5 + [_P], _I),
+        "tt_gblock_b": ([_P] * 12 + [_LL] + [_I] * 5 + [_P], _I),
+        "tt_gblock_workspace": ([_I] * 6, _LL),
+    },
+}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -80,5 +91,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             build([name])
-            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in SIGNATURES.get(name, {}).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LIBS[name] = lib
         return _LIBS[name]

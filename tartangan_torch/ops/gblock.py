@@ -18,9 +18,12 @@ K5 gives the output as a parity stack, shortcut and biases included; one
 
 Layout is the reference's NHWC for x and the outputs; the weights are the
 port's: ``w1`` (Cout, Cin, 3, 3) and ``w2`` (Cout, Cout, 3, 3) OIHW, ``wp``
-(Cin, Cout) as the reference's ``x @ wp`` (the identity when Cin == Cout),
-``b1``, ``b2``, ``bp``, ``s1``/``o1`` (Cin) and ``s2``/``o2`` (Cout)
-BatchNorm scales and offsets, all float32.
+(Cin, Cout) and ``bp`` as the reference's ``x @ wp + bp``, or both None for
+the identity shortcut (Cin == Cout; the reference's ``jnp.eye`` projection
+computes the same), ``b1``, ``b2``, ``s1``/``o1`` (Cin) and ``s2``/``o2``
+(Cout) BatchNorm scales and offsets, all float32. The kernels take these raw
+tensors and the raw statistics: the weight packing (merged taps, the TF32
+split) runs on the card, inside the same C call.
 
 ``fused_gblock`` is a ``torch.autograd.Function``: the forward runs
 ``_moments`` -> K4 -> the statistics folded over the parity axis -> K5 ->
@@ -32,7 +35,6 @@ and ``gblock_b.launches`` count kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
@@ -86,16 +88,22 @@ def gblock_a_plain(x, m1, v1, s1, o1, w1, b1):
     return y1p, torch.stack([y32.sum(0), y32.square().sum(0)])
 
 
+def _shortcut(x, wp, bp):
+    """x @ wp + bp, or x itself for the identity (``wp`` and ``bp`` None)."""
+    return x if wp is None else x @ wp + bp
+
+
 def gblock_b_plain(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
     """K5's function in plain torch ops: out_p = full-res parity
-    conv2(act(bn2(y1p))) + tile(b2, 4) + x @ tile(wp, 4) + tile(bp, 4),
-    NHWC (B, H, W, 4*Cout). The statistics m2, v2 are per Cout channel."""
+    conv2(act(bn2(y1p))) + tile(b2, 4) + tile(x @ wp + bp, 4), NHWC
+    (B, H, W, 4*Cout); ``wp = bp = None`` is the identity shortcut. The
+    statistics m2, v2 are per Cout channel."""
     cout = w2.shape[0]
     inv = torch.rsqrt(v2 + BN_EPS) * s2
     h = _act((y1p - m2.repeat(4)) * inv.repeat(4) + o2.repeat(4))
     y = _nhwc(conv_parity2(_nchw(h), pack_full_conv2(w2), cout,
                            b2.repeat(4)))
-    return y + x @ wp.repeat(1, 4) + bp.repeat(4)
+    return y + _shortcut(x, wp, bp).repeat(1, 1, 1, 4)
 
 
 def _count(fn):
@@ -103,13 +111,17 @@ def _count(fn):
         fn.launches += 1
 
 
-def _check(name, x, w, *ts):
-    """What both kernels take: NHWC x, a (Cout, Ci, 3, 3) weight, float32
-    tensors on one device (cpu or cuda)."""
+def _check(name, x, w, vectors, *ts):
+    """What both kernels take: NHWC x, a (Cout, Ci, 3, 3) weight, vectors
+    of the given lengths, float32 tensors on one device (cpu or cuda)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[2:] != (3, 3):
         raise ValueError(f"{name} takes NHWC x and a (Cout, Ci, 3, 3) weight,"
                          f" got {tuple(x.shape)}, {tuple(w.shape)}")
-    ts = (x, w) + ts
+    for t, n in vectors:
+        if t.shape != (n,):
+            raise ValueError(f"{name}: a vector is {tuple(t.shape)}, not "
+                             f"({n},)")
+    ts = (x, w) + tuple(t for t, _ in vectors) + ts
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"{name} takes float32 tensors, got "
                         f"{sorted({str(t.dtype) for t in ts})}")
@@ -120,43 +132,62 @@ def _check(name, x, w, *ts):
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
 
 
+def _check_contiguous(name, *ts):
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors, got "
+                         f"strides {[t.stride() for t in ts]}")
+
+
+# csrc/gblock.cu's tiling: a CTA owns an 8 x 8 tile of positions and 64
+# channels of each output parity, and stages input channels 8 at a time
+TILE, SLICE, CHUNK = 8, 64, 8
+
+
+def partial_rows(b, h, w):
+    """The rows of K4's partial sums: one per tile (``gb::layout``'s
+    ``rows``)."""
+    return b * -(-h // TILE) * -(-w // TILE)
+
+
+def workspace_floats(full, b, h, w, cin, cout):
+    """The float32 scratch that K4 (``full`` False) or K5 (True) takes, as
+    ``csrc/gblock.cu``'s ``tt_gblock_workspace`` computes it: the packed
+    weights (hi and lo: 16 merged-tap or 9 raw-tap blocks x 64 channels
+    x 8, for every channel slice and chunk), bn's three per-channel
+    vectors (padded to a chunk) and K4's (rows, 2, 4*Cout) partial sums."""
+    nch = -(-(cout if full else cin) // CHUNK)
+    packed = (9 if full else 16) * SLICE * CHUNK * nch * -(-cout // SLICE)
+    rows = 0 if full else partial_rows(b, h, w)
+    return 2 * packed + 3 * CHUNK * nch + rows * 2 * 4 * cout
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
 def gblock_a(x, m1, v1, s1, o1, w1, b1):
-    """K4 for CUDA tensors, ``gblock_a_plain`` for CPU tensors: (y1p,
-    (2, 4*Cout) sums)."""
-    _check("gblock_a", x, w1, m1, v1, s1, o1, b1)
-    if w1.shape[1] != x.shape[3]:
+    """K4 for CUDA tensors (pack, main and reduce launches in one C call),
+    ``gblock_a_plain`` for CPU tensors: (y1p, (2, 4*Cout) sums)."""
+    cin, cout = x.shape[-1], w1.shape[0]
+    _check("gblock_a", x, w1, [(t, cin) for t in (m1, v1, s1, o1)]
+           + [(b1, cout)])
+    if w1.shape[1] != cin:
         raise ValueError(f"gblock_a: x {tuple(x.shape)} does not fit the "
                          f"weight {tuple(w1.shape)}")
     if x.device.type == "cpu":
         return gblock_a_plain(x, m1, v1, s1, o1, w1, b1)
-    b, h, w, cin = x.shape
-    cout = w1.shape[0]
-    x = x.contiguous()
-    w1p = pack_up_conv2(w1).permute(2, 3, 1, 0).contiguous()
-    bias = b1.repeat(4).contiguous()
-    mul = (torch.rsqrt(v1 + BN_EPS) * s1).contiguous()
-    mean, add = m1.contiguous(), o1.contiguous()
+    _check_contiguous("gblock_a", x, m1, v1, s1, o1, w1, b1)
+    b, h, w, _ = x.shape
     y1p = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
-    lib = build.load("gblock")
-    lib.tt_gblock_partial_rows.argtypes = [ctypes.c_int] * 4
-    lib.tt_gblock_partial_rows.restype = ctypes.c_longlong
-    rows = lib.tt_gblock_partial_rows(b, h, w, cout)
-    partial = torch.empty((rows, 2, 4 * cout), dtype=torch.float32,
-                          device=x.device)
-    stats = torch.empty((2, 4 * cout), dtype=torch.float32, device=x.device)
-    fn = lib.tt_gblock_a
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    stats = torch.empty((2, 4 * cout), dtype=x.dtype, device=x.device)
+    nwork = workspace_floats(False, b, h, w, cin, cout)
+    work = torch.empty(nwork, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w1p.data_ptr(), bias.data_ptr(),
-                 mean.data_ptr(), mul.data_ptr(), add.data_ptr(),
-                 y1p.data_ptr(), partial.data_ptr(), rows, stats.data_ptr(),
-                 b, h, w, cin, cout, _stream(x.device))
+        err = build.load("gblock").tt_gblock_a(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), m1.data_ptr(),
+            v1.data_ptr(), s1.data_ptr(), o1.data_ptr(), y1p.data_ptr(),
+            stats.data_ptr(), work.data_ptr(), nwork, b, h, w, cin, cout,
+            _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_a kernel launch failed: cudaError {err}")
     _count(gblock_a)
@@ -164,33 +195,37 @@ def gblock_a(x, m1, v1, s1, o1, w1, b1):
 
 
 def gblock_b(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
-    """K5 for CUDA tensors, ``gblock_b_plain`` for CPU tensors: out_p."""
-    _check("gblock_b", x, w2, y1p, m2, v2, s2, o2, b2, wp, bp)
-    cout = w2.shape[0]
+    """K5 for CUDA tensors (pack and main launches in one C call),
+    ``gblock_b_plain`` for CPU tensors: out_p. ``wp = bp = None`` is the
+    identity shortcut (Cin == Cout), added as x."""
+    cin, cout = x.shape[-1], w2.shape[0]
+    if (wp is None) != (bp is None):
+        raise ValueError("gblock_b: give both wp and bp, or neither")
+    proj = () if wp is None else (wp,)
+    _check("gblock_b", x, w2, [(t, cout) for t in (m2, v2, s2, o2, b2)]
+           + ([] if bp is None else [(bp, cout)]), y1p, *proj)
     if y1p.shape != x.shape[:3] + (4 * cout,) or w2.shape[1] != cout \
-            or wp.shape != (x.shape[3], cout):
+            or (wp is None and cin != cout) \
+            or (wp is not None and wp.shape != (cin, cout)):
         raise ValueError(f"gblock_b: y1p {tuple(y1p.shape)}, x "
                          f"{tuple(x.shape)}, w2 {tuple(w2.shape)} and wp "
-                         f"{tuple(wp.shape)} do not fit")
+                         f"{None if wp is None else tuple(wp.shape)} do not "
+                         f"fit")
     if x.device.type == "cpu":
         return gblock_b_plain(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp)
-    b, h, w, cin = x.shape
-    y1p, x = y1p.contiguous(), x.contiguous()
-    w2p = pack_full_conv2(w2).permute(2, 3, 1, 0).contiguous()
-    wp = wp.contiguous()
-    bias = (b2 + bp).repeat(4).contiguous()
-    mean = m2.repeat(4).contiguous()
-    mul = (torch.rsqrt(v2 + BN_EPS) * s2).repeat(4).contiguous()
-    add = o2.repeat(4).contiguous()
+    _check_contiguous("gblock_b", y1p, x, m2, v2, s2, o2, w2, b2, *proj,
+                      *(() if bp is None else (bp,)))
+    b, h, w, _ = x.shape
     out = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
-    fn = build.load("gblock").tt_gblock_b
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    nwork = workspace_floats(True, b, h, w, cin, cout)
+    work = torch.empty(nwork, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(y1p.data_ptr(), x.data_ptr(), w2p.data_ptr(), wp.data_ptr(),
-                 bias.data_ptr(), mean.data_ptr(), mul.data_ptr(),
-                 add.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-                 _stream(x.device))
+        err = build.load("gblock").tt_gblock_b(
+            y1p.data_ptr(), x.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if wp is None else wp.data_ptr(),
+            None if bp is None else bp.data_ptr(), m2.data_ptr(),
+            v2.data_ptr(), s2.data_ptr(), o2.data_ptr(), out.data_ptr(),
+            work.data_ptr(), nwork, b, h, w, cin, cout, _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_b kernel launch failed: cudaError {err}")
     _count(gblock_b)
@@ -203,6 +238,9 @@ def _fused_forward(x, p, use_kernel=True):
     versions on any device (then differentiable by autograd)."""
     fa, fb = (gblock_a, gblock_b) if use_kernel else (gblock_a_plain,
                                                        gblock_b_plain)
+    # the kernels take contiguous tensors (a no-op for those that are)
+    x = x.contiguous()
+    p = {k: None if v is None else v.contiguous() for k, v in p.items()}
     b, h, w, _ = x.shape
     cout = p["w1"].shape[0]
     m1, v1 = _moments(x)
@@ -213,8 +251,8 @@ def _fused_forward(x, p, use_kernel=True):
     s4 = stats.reshape(2, 4, cout).sum(1)
     m2 = s4[0] / npix
     v2 = s4[1] / npix - m2.square()
-    out_p = fb(y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"], p["wp"],
-               p["bp"])
+    out_p = fb(y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],
+               p.get("wp"), p.get("bp"))
     return _nhwc(depth_to_space(_nchw(out_p), cout)), (m1, v1, m2, v2)
 
 
@@ -222,7 +260,8 @@ def _gblock_reference(x, params, stats=None):
     """Plain torch forward with the same semantics, at full resolution
     (the reference's ``_gblock_reference``): the backward differentiates
     it, and eval mode runs it with ``stats`` = the running (m1, v1, m2,
-    v2). Returns (out NHWC, (m1, v1, m2, v2))."""
+    v2). ``wp``/``bp`` None (or absent) is the identity shortcut. Returns
+    (out NHWC, (m1, v1, m2, v2))."""
     p = params
     m1, v1 = _moments(x) if stats is None else stats[:2]
     h = _act((x.float() - m1) * torch.rsqrt(v1 + BN_EPS) * p["s1"] + p["o1"])
@@ -231,8 +270,8 @@ def _gblock_reference(x, params, stats=None):
     m2, v2 = _moments(y1) if stats is None else stats[2:]
     h2 = _act((y1 - m2) * torch.rsqrt(v2 + BN_EPS) * p["s2"] + p["o2"])
     y2 = _nhwc(conv2d(_nchw(h2), p["w2"], p["b2"], padding=1))
-    out = y2 + _nhwc(upsample_nearest_2x(_nchw(x))) @ p["wp"] + p["bp"]
-    return out, (m1, v1, m2, v2)
+    x_up = _nhwc(upsample_nearest_2x(_nchw(x)))
+    return y2 + _shortcut(x_up, p.get("wp"), p.get("bp")), (m1, v1, m2, v2)
 
 
 class _FusedGBlock(torch.autograd.Function):
@@ -247,23 +286,35 @@ class _FusedGBlock(torch.autograd.Function):
     def backward(ctx, d_out, *_d_stats):
         # the statistics feed the running averages only (zero cotangent);
         # the block differentiates through its batch statistics, so the
-        # reference forward is recomputed with them
-        def f(x, *values):
-            return _gblock_reference(x, dict(zip(PARAMS, values)))[0]
-        _, vjp = torch.func.vjp(f, *ctx.saved_tensors)
-        return vjp(d_out.contiguous())
+        # reference forward is recomputed with them. An identity shortcut
+        # (wp, bp None) is closed over, not differentiated
+        x, *values = ctx.saved_tensors
+        given = [i for i, v in enumerate(values) if v is not None]
+
+        def f(x, *ts):
+            vals = list(values)
+            for i, t in zip(given, ts):
+                vals[i] = t
+            return _gblock_reference(x, dict(zip(PARAMS, vals)))[0]
+        _, vjp = torch.func.vjp(f, x, *(values[i] for i in given))
+        dx, *dts = vjp(d_out.contiguous())
+        grads = [None] * len(values)
+        for i, g in zip(given, dts):
+            grads[i] = g
+        return (dx, *grads)
 
 
 def fused_gblock(x, params, use_kernel=True):
     """The fused block's forward on NHWC ``x``, differentiable once:
     returns (out (B, 2H, 2W, Cout), (m1, v1, m2, v2)); the statistics are
-    for the running averages and carry no gradient. ``use_kernel=False``
-    runs the plain versions of K4/K5 under autograd instead, on any
-    device."""
+    for the running averages and carry no gradient. ``params`` without
+    ``wp``/``bp`` (or with them None) has the identity shortcut.
+    ``use_kernel=False`` runs the plain versions of K4/K5 under autograd
+    instead, on any device."""
     if not use_kernel:
         out, stats = _fused_forward(x, params, use_kernel=False)
         return out, tuple(s.detach() for s in stats)
-    out, *stats = _FusedGBlock.apply(x, *(params[k] for k in PARAMS))
+    out, *stats = _FusedGBlock.apply(x, *(params.get(k) for k in PARAMS))
     return out, tuple(stats)
 
 

@@ -73,7 +73,13 @@ def _gblock_params(rng, cin, cout):
 
 
 def _port_params(p):
-    return {k: _oihw(v) if k in ("w1", "w2") else _t(v) for k, v in p.items()}
+    """The port's parameters: OIHW convs, and the identity shortcut (the
+    JAX side's ``jnp.eye`` projection) as ``wp = bp = None``, as
+    ``FusedResidualGeneratorBlock._params`` passes it."""
+    q = {k: _oihw(v) if k in ("w1", "w2") else _t(v) for k, v in p.items()}
+    if p["w1"].shape[2] == p["w1"].shape[3]:
+        q["wp"] = q["bp"] = None
+    return q
 
 
 @pytest.mark.parametrize("cin,cout", [(12, 8), (8, 8)])
@@ -107,6 +113,94 @@ def test_k4_k5_plain_match_jax_interpret(rng, cin, cout):
     torch.testing.assert_close(out, out_full)
     ref_out, _ = G._gblock_reference(xt, q)
     torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-4)
+
+
+def _gradients_against_jax(rng, use_kernel, cin, cout):
+    x = rng.standard_normal((2, 4, 4, cin)).astype(np.float32)
+    p = _gblock_params(rng, cin, cout)
+    cot = rng.standard_normal((2, 8, 8, cout)).astype(np.float32)
+
+    def jloss(xx, pp):
+        return jnp.sum(JG.fused_gblock(xx, pp)[0] * cot)
+
+    gx, gp = jax.grad(jloss, argnums=(0, 1))(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()})
+    q = _port_params(p)
+    names = [k for k in G.PARAMS if q[k] is not None]
+    for k in names:
+        q[k].requires_grad_()
+    xt = _t(x).requires_grad_()
+    (G.fused_gblock(xt, q, use_kernel=use_kernel)[0] * _t(cot)).sum() \
+        .backward()
+    ref = [np.asarray(gx)] + [np.asarray(gp[k]) for k in names]
+    ours = [xt.grad.numpy()] + [
+        q[k].grad.numpy().transpose(2, 3, 1, 0) if k in ("w1", "w2")
+        else q[k].grad.numpy() for k in names]
+    scale = max(np.abs(r).max() for r in ref)
+    for name, a, r in zip(["x"] + names, ours, ref):
+        np.testing.assert_allclose(a / scale, r / scale, rtol=0, atol=1e-4,
+                                   err_msg=name)
+    return names
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_fused_gblock_identity_gradients_match_jax(rng, use_kernel):
+    """The identity shortcut (``wp = bp = None``, closed over by the
+    Function's backward) against JAX's ``jnp.eye`` projection: every
+    gradient but the projection's, which the port has no parameter for."""
+    assert "wp" not in _gradients_against_jax(rng, use_kernel, 8, 8)
+
+
+def test_identity_shortcut_is_x(rng):
+    """``wp = bp = None`` gives what the I-projection gave, in
+    ``gblock_b_plain`` and ``_gblock_reference``; one of the two alone is
+    refused."""
+    x = _t(rng.standard_normal((2, 5, 3, 8)).astype(np.float32))
+    q = _port_params(_gblock_params(rng, 8, 8))
+    eye = dict(q, wp=torch.eye(8), bp=torch.zeros(8))
+    y1p = _t(rng.standard_normal((2, 5, 3, 32)).astype(np.float32))
+    stats = (torch.rand(8), 1 + torch.rand(8))
+    args = (q["s2"], q["o2"], q["w2"], q["b2"])
+    torch.testing.assert_close(
+        G.gblock_b(y1p, x, *stats, *args, None, None),
+        G.gblock_b_plain(y1p, x, *stats, *args, eye["wp"], eye["bp"]))
+    torch.testing.assert_close(G._gblock_reference(x, q)[0],
+                               G._gblock_reference(x, eye)[0])
+    with pytest.raises(ValueError, match="both"):
+        G.gblock_b(y1p, x, *stats, *args, None, eye["bp"])
+    with pytest.raises(ValueError, match="fit"):
+        G.gblock_b(y1p, torch.zeros(2, 5, 3, 4), *stats, *args, None, None)
+
+
+@pytest.mark.parametrize("cin,cout", [(12, 8), (8, 8), (8, 16)])
+def test_params_identity_exactly_when_widths_match(cin, cout):
+    p = blocks.FusedResidualGeneratorBlock(cin, cout)._params()
+    assert (p["wp"] is None) == (cin == cout)
+    assert (p["bp"] is None) == (cin == cout)
+    if cin != cout:
+        assert p["wp"].shape == (cin, cout) and p["bp"].shape == (cout,)
+
+
+@pytest.mark.parametrize("shape,rows,floats", [
+    # (b, h, w, cin, cout): K4's partial rows, K4 / K5 scratch
+    ((64, 8, 8, 128, 128), 64, (590208, 295296)),
+    ((64, 16, 16, 128, 128), 256, (786816, 295296)),
+    ((3, 9, 19, 5, 7), 18, (17416, 9240)),
+    ((1, 17, 10, 12, 200), 6, (140720, 922200)),
+])
+def test_workspace_of_the_tiling(shape, rows, floats):
+    """The mirror of the kernels' tiling: one partial row per 8 x 8 tile;
+    the scratch as packed weights (hi, lo: 16 or 9 blocks x 64 channels x
+    8, per channel slice and 8-channel chunk), 3 bn vectors padded to 8
+    and K4's (rows, 2, 4*Cout) sums."""
+    b, h, w, cin, cout = shape
+    assert G.partial_rows(b, h, w) == rows == b * -(-h // 8) * -(-w // 8)
+    for full, want in zip((False, True), floats):
+        nch = -(-(cout if full else cin) // 8)
+        packed = (9 if full else 16) * 64 * 8 * nch * -(-cout // 64)
+        assert want == 2 * packed + 24 * nch + (0 if full else
+                                                rows * 8 * cout)
+        assert G.workspace_floats(full, *shape) == want
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

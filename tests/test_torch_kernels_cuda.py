@@ -136,9 +136,10 @@ def test_attention_kernel_is_deterministic(cuda, b):
 @pytest.mark.cuda
 def test_parity_blocks_and_attention_do_not_sync(cuda, monkeypatch):
     """After a warm-up call, a forward and backward of the parity blocks
-    (G on K3, the fused G block on K4/K5, D through both parity
-    downsamplers and the packers) and of the attention (K1, K2) make no
-    call that synchronizes the stream with the host."""
+    (G on K3, the fused G block on K4/K5 with the identity shortcut and
+    with a projection, D through both parity downsamplers and the packers)
+    and of the attention (K1, K2) make no call that synchronizes the
+    stream with the host, and no host-to-device copy."""
     from tartangan_torch.models.blocks import (
         FusedResidualGeneratorBlock,
         ParityResidualDiscriminatorBlock,
@@ -152,6 +153,7 @@ def test_parity_blocks_and_attention_do_not_sync(cuda, monkeypatch):
     gen = torch.Generator(device=cuda).manual_seed(10)
     blocks = [(ParityResidualGeneratorBlock(16, 8), (2, 16, 8, 8)),
               (FusedResidualGeneratorBlock(16, 16), (2, 16, 4, 4)),
+              (FusedResidualGeneratorBlock(16, 8), (2, 16, 4, 4)),
               (ParityResidualDiscriminatorBlock(
                   4, 8, accept_parity=True, emit_parity=True),
                (2, 16, 16, 16))]
@@ -173,14 +175,18 @@ def test_parity_blocks_and_attention_do_not_sync(cuda, monkeypatch):
     run()
     torch.cuda.synchronize()
     before = [f.launches for f in counters]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        run()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
     assert [f.launches - n for f, n in zip(counters, before)] == \
-        [1, 1, 2, 1, 1]
+        [1, 1, 2, 2, 2]
+    copies = [e.name for e in prof.events() if "HtoD" in e.name]
+    assert not copies, copies
 
 
 @pytest.mark.cuda
@@ -348,37 +354,145 @@ def test_parity_conv_kernel_is_deterministic(cuda, mode):
     assert torch.equal(first, second)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 8, 128, 128), (4, 12, 96, 40),
-                                   (2, 5, 7, 3)])
-def test_gblock_kernels_match_plain(cuda, shape):
+def _gblock_case(dev, b, h, w, cin, cout, identity, seed=4,
+                 dtype=torch.float32):
+    """x, the block's parameters (``wp = bp = None`` for the identity) and
+    bn1's moments, made on the card from a seed."""
     from tartangan_torch.ops import gblock as G
-    b, h, cin, cout = shape
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    r = lambda *s: torch.randn(*s, device=cuda, generator=gen)  # noqa: E731
-    x = r(b, h, h, cin)
-    w1, w2 = 0.05 * r(cout, cin, 3, 3), 0.05 * r(cout, cout, 3, 3)
-    b1, b2, bp = r(cout), r(cout), r(cout)
-    wp = 0.05 * r(cin, cout)
-    s1, o1, s2, o2 = 1 + 0.1 * r(cin), r(cin), 1 + 0.1 * r(cout), r(cout)
-    m1, v1 = G._moments(x)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    x = r(b, h, w, cin)
+    p = {"w1": 0.05 * r(cout, cin, 3, 3), "w2": 0.05 * r(cout, cout, 3, 3),
+         "b1": r(cout), "b2": r(cout), "s1": 1 + 0.1 * r(cin), "o1": r(cin),
+         "s2": 1 + 0.1 * r(cout), "o2": r(cout), "wp": None, "bp": None}
+    if not identity:
+        p["wp"], p["bp"] = 0.05 * r(cin, cout), r(cout)
+    p = {k: None if v is None else v.to(dtype) for k, v in p.items()}
+    x = x.to(dtype)
+    return x, p, G._moments(x)
+
+
+def _gblock_run(G, x, p, m1, v1, kernels=True):
+    """K4 then K5 (or their plain versions) as ``_fused_forward`` chains
+    them: (y1p, sums, out_p)."""
+    fa, fb = (G.gblock_a, G.gblock_b) if kernels else (G.gblock_a_plain,
+                                                       G.gblock_b_plain)
+    b, h, w, _ = x.shape
+    cout = p["w1"].shape[0]
+    y1p, sums = fa(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+    s4 = sums.reshape(2, 4, cout).sum(1) / (4 * b * h * w)
+    m2, v2 = s4[0], s4[1] - s4[0].square()
+    out = fb(y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"], p["wp"],
+             p["bp"])
+    return y1p, sums, out
+
+
+GBLOCK_CASES = [
+    (64, 8, 8, 128, 128, True),     # '512thin' fused block 1, identity
+    (64, 16, 16, 128, 128, True),   # '512thin' fused block 2, identity
+    (8, 8, 8, 128, 128, False),     # the same width with a projection
+    (4, 12, 12, 96, 40, False),     # Cin != Cout
+    (2, 11, 13, 6, 6, True),        # ragged H, W; Cout 6 (no 16-byte loads)
+    (3, 9, 19, 5, 7, False),        # ragged, Cin 5 -> Cout 7
+    (1, 17, 10, 12, 200, False),    # Cout past three channel slices
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GBLOCK_CASES)
+def test_gblock_kernels_match_plain(cuda, case):
+    """K4 (y1p and its sums) and K5 (out_p) against their plain versions,
+    K5 fed the plain y1p and statistics."""
+    from tartangan_torch.ops import gblock as G
+    b, h, w, cin, cout, identity = case
+    x, p, (m1, v1) = _gblock_case(cuda, *case)
     before = (G.gblock_a.launches, G.gblock_b.launches)
-    y1p, sums = G.gblock_a(x, m1, v1, s1, o1, w1, b1)
-    y1r, sumr = G.gblock_a_plain(x, m1, v1, s1, o1, w1, b1)
+    y1p, sums = G.gblock_a(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+    y1r, sumr = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                 p["b1"])
+    assert y1p.shape == (b, h, w, 4 * cout) and sums.shape == (2, 4 * cout)
     for out, ref in ((y1p, y1r), (sums[0], sumr[0]), (sums[1], sumr[1])):
         _scaled_close(out, ref)
-    n = 4 * b * h * h
+    n = 4 * b * h * w
     m2 = sumr.reshape(2, 4, cout).sum(1)[0] / n
     v2 = sumr.reshape(2, 4, cout).sum(1)[1] / n - m2.square()
-    out = G.gblock_b(y1r, x, m2, v2, s2, o2, w2, b2, wp, bp)
-    _scaled_close(out, G.gblock_b_plain(y1r, x, m2, v2, s2, o2, w2, b2, wp,
-                                        bp))
+    args = (y1r, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"], p["wp"],
+            p["bp"])
+    out = G.gblock_b(*args)
+    _scaled_close(out, G.gblock_b_plain(*args))
     torch.cuda.synchronize()
     assert (G.gblock_a.launches, G.gblock_b.launches) == \
         (before[0] + 1, before[1] + 1)
-    # the same launch twice gives the same sums: no float atomics
-    torch.testing.assert_close(G.gblock_a(x, m1, v1, s1, o1, w1, b1)[1],
-                               sums, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [GBLOCK_CASES[1], GBLOCK_CASES[5]])
+def test_gblock_kernels_are_deterministic(cuda, case):
+    """No float atomics: two launches give the same bits for y1p, the sums
+    and out_p."""
+    from tartangan_torch.ops import gblock as G
+    x, p, (m1, v1) = _gblock_case(cuda, *case, seed=6)
+    first = _gblock_run(G, x, p, m1, v1)
+    second = _gblock_run(G, x, p, m1, v1)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+# each kernel's max error against its plain version in float64, over the
+# float64 output's max-abs: 3xTF32 products (a ~2^-22 relative split
+# error a product) and float32 accumulation over K = 4*Cin (K4) or 9*Cout
+# (K5) terms
+TOL_GBLOCK_F64 = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GBLOCK_CASES[:2])
+def test_gblock_kernels_error_against_float64(cuda, case):
+    from tartangan_torch.ops import gblock as G
+    x, p, (m1, v1) = _gblock_case(cuda, *case, seed=8)
+    ours = _gblock_run(G, x, p, m1, v1)
+    x64, p64, (m64, v64) = _gblock_case(cuda, *case, seed=8,
+                                        dtype=torch.float64)
+    refs = _gblock_run(G, x64, p64, m64, v64, kernels=False)
+    for name, a, r in zip(("y1p", "sums", "out_p"), ours, refs):
+        err = ((a.double() - r).abs().max() / r.abs().max()).item()
+        assert err <= TOL_GBLOCK_F64, (name, err)
+
+
+@pytest.mark.cuda
+def test_gblock_kernels_reject_what_they_cannot_take(cuda):
+    from tartangan_torch.ops import gblock as G
+    x, p, (m1, v1) = _gblock_case(cuda, 2, 8, 8, 16, 16, True)
+    args = (m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+    with pytest.raises(ValueError, match="contiguous"):
+        G.gblock_a(x.transpose(1, 2), *args)
+    with pytest.raises(TypeError):
+        G.gblock_a(x.double(), *args)
+    y1p, _ = G.gblock_a(x, *args)
+    rest = (p["s2"], p["o2"], p["w2"], p["b2"])
+    m2, v2 = p["b2"].abs(), 1 + p["b2"].abs()
+    with pytest.raises(ValueError, match="contiguous"):
+        G.gblock_b(y1p, x.transpose(1, 2), m2, v2, *rest, None, None)
+    with pytest.raises(TypeError):
+        G.gblock_b(y1p.double(), x, m2, v2, *rest, None, None)
+    with pytest.raises(ValueError, match="both"):
+        G.gblock_b(y1p, x, m2, v2, *rest, None, p["b2"])
+
+
+@pytest.mark.cuda
+def test_gblock_workspace_matches_the_kernels(cuda):
+    """``ops/gblock.py::workspace_floats``, the mirror of the kernels' tile
+    policy, against ``tt_gblock_workspace`` of the built library."""
+    from tartangan_torch.ops import build
+    from tartangan_torch.ops import gblock as G
+    lib = build.load("gblock")
+    for full in (False, True):
+        for b, h, w, cin, cout in ((64, 8, 8, 128, 128), (64, 16, 16, 128, 128),
+                                   (3, 9, 19, 5, 7), (1, 17, 10, 12, 200),
+                                   (2, 1, 1, 3, 1)):
+            assert lib.tt_gblock_workspace(int(full), b, h, w, cin, cout) == \
+                G.workspace_floats(full, b, h, w, cin, cout)
 
 
 @pytest.mark.cuda
