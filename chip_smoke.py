@@ -47,7 +47,10 @@ printing a result:
    its keys split over CTAs, logits large enough for many lazy rescales),
    and two launches bit-identical. TF32 is off
    for matmuls and convolutions in the whole script, so float32 references
-   are full float32. Then the no-sync check: a forward and backward of
+   are full float32. Then K3, K4 and K5 in bfloat16 (``--dtype bf16``)
+   against their bfloat16 plain versions at the same shapes
+   (TOL_PARITY_BF16), K4's float32 sums against those of the y1p it
+   stored. Then the no-sync check: a forward and backward of
    '512thin''s G and D parity blocks, a fused G block and the attention,
    with K1-K5 on, under ``torch.cuda.set_sync_debug_mode("error")`` after
    a warm-up call.
@@ -61,7 +64,10 @@ printing a result:
    form with the bias as K3's library call; for K3 also the share of the
    bound and the ratio to ``F.conv2d``; for K4 and K5 the bound of their
    3xTF32 tensor-core products beside the FMA bound, and ``F.conv2d`` of
-   the 3x3-packed conv alone as ``conv_only_ms``).
+   the 3x3-packed conv alone as ``conv_only_ms``). Then K1-K5 in
+   bfloat16 at the same shapes: device time, plain version, library call
+   (SDPA and its backward in bfloat16; ``F.conv2d`` in bfloat16 for K3) and
+   the bound against the bfloat16 tensor-core peak.
 5. serve: writes a full-width '512thin' generator (random weights from a
    seeded ``torch.Generator``, every attention ``gamma`` nonzero) as a run
    directory in the JAX trainer's layout, serves it in-process with
@@ -94,11 +100,26 @@ printing a result:
    step and the plain step in turns (and the parity step with a layout
    copy before each conv, and with its constants made anew at each call
    as before they were cached), with profiles and the peak memory.
+8. parity, bfloat16: the same 3 steps with ``--dtype bf16``; every K1-K5
+   launch in bfloat16, as many as in float32; parameters, running
+   statistics, Adam's state and the EMA target float32. One step from the
+   parity step's state, batch and latents with the kernels, held against
+   the plain step in float64 within PARITY_WITNESS_FACTOR times the
+   farthest bfloat16 step without the kernels (the parity forms with
+   FUSED_G off and the plain K4/K5 and attention; the plain path), losses
+   and gradients. The float32 and bfloat16 parity steps timed in turns,
+   with images/s, peak memory and a profile each.
+9. config '128' (the JAX package's main path, plain blocks, no
+   attention) at B 128 in float32 and in bfloat16: 3 steps each through
+   the trainer's entry points, finite losses, then the two steps timed in
+   turns with images/s, peak memory and a profile each.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
 ``shape_d`` and K1's serving shapes under ``shape_serve``; K3-K5's times
-summed over the launches of one G forward),
+summed over the launches of one G forward; each record's ``dtypes`` and,
+under ``bf16``, its bfloat16 numbers and the bfloat16 parity path's
+launches),
 the ``nvidia-smi`` name/power-limit line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -136,6 +157,9 @@ PEAK_BYTES = 3.35e12
 # TF32 on the tensor cores (dense); K4 and K5 do each float32 product as
 # three TF32 products (3xTF32)
 PEAK_TF32_FLOPS = 495e12
+# bfloat16 on the tensor cores (dense): the bound of every kernel's
+# bfloat16 form (--dtype bf16)
+PEAK_BF16_FLOPS = 989e12
 
 # kernel vs plain version on the card. float32: the kernel takes exp as
 # exp2 of log2(e)-scaled logits and sums in another order than cuBLAS;
@@ -174,6 +198,11 @@ TOL_STEP_GRAD = dict(rtol=0, atol=1e-3)
 # fault gives errors of order 1
 TOL_PARITY_STEP_GRAD = {"norm": 1e-3, "max": 1e-3}
 PARITY_WITNESS_FACTOR = 3
+# bfloat16 (--dtype bf16): K3-K5 against their plain versions, which round
+# at the same points, each error over the plain output's max-abs: where the
+# float32 sums before a rounding differ in their last bits, a value lands
+# one bfloat16 ulp away, at most 2^-7 of the max-abs
+TOL_PARITY_BF16 = dict(rtol=0, atol=2 ** -7)
 
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # launches per train step with R1: K1 in G (D step's fakes, G step) and D
@@ -325,13 +354,13 @@ def ptxas_usage(text):
 
 
 def attention_bound_ms(b, lq, lk, ck, cv, itemsize, backward=False,
-                       with_lse=True):
+                       with_lse=True, peak=PEAK_F32_FLOPS):
     """Least time for the attention on an H100: each input read once and
     each output written once, against the float32 FLOPs the JAX kernel
     does: 2*B*Lq*Lk*(Ck+Cv) forward, with q, k, v in and o and (when
     training, ``with_lse``) the f32 lse out; 2*B*Lq*Lk*(3*Ck+2*Cv) backward
     (s, dp, dq, dk, dv), with q, k, v, do, o and lse in and dq, dk, dv
-    out."""
+    out; the FLOPs at ``peak``."""
     qkv = b * lq * ck + b * lk * ck + b * lk * cv
     if backward:
         nbytes = itemsize * (2 * qkv + 2 * b * lq * cv) + 4 * b * lq
@@ -339,8 +368,7 @@ def attention_bound_ms(b, lq, lk, ck, cv, itemsize, backward=False,
     else:
         nbytes = itemsize * (qkv + b * lq * cv) + 4 * b * lq * with_lse
         flops = 2 * b * lq * lk * (ck + cv)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return _bound(nbytes, flops, peak)
 
 
 def png_size(data):
@@ -886,9 +914,24 @@ def profile_call(label, fn):
     if not busy_us:
         log(f"profile {label}: device time not measured")
         return
+    # busy: the union of the device events' intervals, so that kernels
+    # that overlap (on other streams) count once; their sum beside it
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and e.duration_ns() > 0)
+    union_ns, end = 0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            union_ns += stop - start
+            end = stop
+        elif stop > end:
+            union_ns += stop - end
+            end = stop
     log(f"profile {label}: host {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy_us / 1e3:.3f} ms, idle share "
-        f"{1 - busy_us / wall_us:.3f}")
+        f"busy {union_ns / 1e6:.3f} ms (union of its events; their sum "
+        f"{busy_us / 1e3:.3f} ms), idle share "
+        f"{1 - union_ns / 1e3 / wall_us:.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x "
             f"{e.key[:90]}")
@@ -1095,7 +1138,8 @@ def parity_trainer(argv, fused=True):
                 block_factory=F.g_block_factory(
                     a.norm, a.activation, fused=fused,
                     parity=F.resolve_parity(a.parity_blocks)),
-                output_factory=F.g_output_factory(a.norm, a.activation))
+                output_factory=F.g_output_factory(a.norm, a.activation),
+                dtype=self.dtype)
 
     return FusedGTrainer.create_from_cli(argv)
 
@@ -1109,11 +1153,13 @@ def parity_counters():
             "gblock_b": gblock_b}
 
 
-def phase_parity_train(archive):
+def phase_parity_train(archive, dtype="f32"):
     """Train full-width '512thin' at B 64 with --parity-blocks on,
     ``FUSED_G`` and the fused G blocks for 3 steps through the trainer's
-    entry points; check the losses, the launches per step and the
-    checkpoint's layout."""
+    entry points, in ``dtype`` (``--dtype``); check the losses, the launches
+    per step (every launch in the compute dtype), the checkpoint's layout,
+    and that parameters, running statistics, Adam's state and the EMA
+    target stay float32."""
     from tartangan_torch.models.blocks import (
         FusedResidualGeneratorBlock,
         ParityResidualDiscriminatorBlock,
@@ -1123,12 +1169,14 @@ def phase_parity_train(archive):
     from tartangan_torch.utils import msgpack
     P.FUSED_G = True
     out_root = PARITY_DIR / "out"
-    shutil.rmtree(out_root, ignore_errors=True)
+    run_id = "parity" if dtype == "f32" else f"parity_{dtype}"
+    shutil.rmtree(out_root / run_id, ignore_errors=True)
     trainer = parity_trainer([
         str(archive), "--config", "512thin", "--parity-blocks", "on",
-        "--batch-size", "64", "--epochs", "1", "--dtype", "f32", "--device",
-        "cuda", "--run-id", "parity", "--output", str(out_root),
+        "--batch-size", "64", "--epochs", "1", "--dtype", dtype, "--device",
+        "cuda", "--run-id", run_id, "--output", str(out_root),
         "--log-iters", "1", "--log-progress-newlines"])
+    compute = trainer.dtype
     counters = parity_counters()
     per_step = []
     train_batch = trainer.train_batch
@@ -1145,11 +1193,14 @@ def phase_parity_train(archive):
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
+        f.launches_by_dtype = {}
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
+    by_dtype = {k: {str(t)[6:]: n for t, n in f.launches_by_dtype.items()}
+                for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
     g, d = trainer.state.g, trainer.state.d
@@ -1165,11 +1216,25 @@ def phase_parity_train(archive):
     steps = 192 // 64
     losses = {k: [float(v) for v in trainer.logs[k]]
               for k in ("g_loss", "d_loss", "gp")}
-    log(f"parity train: '512thin' B64 float32 --parity-blocks on, FUSED_G, "
-        f"fused G blocks; G blocks {kinds}; {steps} steps in {wall:.1f} s "
-        f"(host clock, sampling and checkpoints included); losses {losses}; "
-        f"launches per step {per_step}; in the whole run {launches}; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
+    log(f"parity train: '512thin' B64 {str(compute)[6:]} --parity-blocks "
+        f"on, FUSED_G, fused G blocks; G blocks {kinds}; {steps} steps in "
+        f"{wall:.1f} s (host clock, sampling and checkpoints included); "
+        f"losses {losses}; launches per step {per_step}; in the whole run "
+        f"{launches}, by dtype {by_dtype}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    for k, f in counters.items():
+        if f.launches_by_dtype != {compute: launches[k]}:
+            raise AssertionError(f"{k}: launches by dtype {by_dtype[k]}, "
+                                 f"not all {compute}")
+    s = trainer.state
+    kept = [t.dtype for m in (s.g, s.g_target, s.d) for t in
+            list(m.parameters()) + list(m.buffers())]
+    kept += [v.dtype for opt in (s.opt_g, s.opt_d)
+             for st in opt.state.values() for v in st.values()
+             if torch.is_tensor(v) and v.dim()]
+    if set(kept) != {torch.float32}:
+        raise AssertionError(f"parameters, statistics, Adam or the target "
+                             f"not float32: {set(kept)}")
     for k, vals in losses.items():
         assert len(vals) == steps and all(np.isfinite(vals)), (k, vals)
     want = {"attention_fwd": K1_PER_STEP, "attention_bwd": K2_PER_STEP,
@@ -1178,10 +1243,11 @@ def phase_parity_train(archive):
     if per_step != [want] * steps:
         raise AssertionError(f"expected {want} launches per step, got "
                              f"{per_step}")
-    ckpt = out_root / "parity" / "checkpoints" / str(steps)
+    ckpt = out_root / run_id / "checkpoints" / str(steps)
     tree = msgpack.loads((ckpt / "g.msgpack").read_bytes())
     fused = tree["params"]["blocks_1"]
     assert np.shape(fused["conv1_kernel"]) == (3, 3, 128, 128)
+    assert np.asarray(fused["conv1_kernel"]).dtype == np.float32
     assert sorted(tree["batch_stats"]["blocks_1"]) == [
         "bn1_mean", "bn1_var", "bn2_mean", "bn2_var"]
     par = tree["params"]["blocks_3"]
@@ -1193,9 +1259,8 @@ def phase_parity_train(archive):
     assert int(opt_g["0"]["count"]) == steps
     log(f"parity train: checkpoint {ckpt} is in the JAX layout (fused "
         f"blocks' flat HWIO kernels and bn*_mean/var, parity blocks' plain "
-        f"trees, optax Adam state)")
-    return trainer, {k: launches[k] for k in ("parity_conv", "gblock_a",
-                                              "gblock_b")}, per_step
+        f"trees, optax Adam state), float32")
+    return trainer, launches, per_step
 
 
 def plain_state_from_fused(state):
@@ -1244,16 +1309,18 @@ def _step_grads(trainer, batch, z_d, z_g, plain_names=False):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
-def _hold(label, a, b, witness=None):
+def _hold(label, a, b, witness=None, losses=True):
     """Log one step against another: the losses are held at
-    TOL_STEP_LOSS, and with ``witness`` (errors of other steps against the
-    same reference) the gradients too (see TOL_PARITY_STEP_GRAD).
-    Returns ({"g"/"d": {"max": ..., "norm": ...}}, [what failed])."""
+    TOL_STEP_LOSS (logged only without ``losses``), and with ``witness``
+    (errors of other steps against the same reference) the gradients too
+    (see TOL_PARITY_STEP_GRAD). Returns ({"g"/"d": {"max": ...,
+    "norm": ...}}, [what failed])."""
     (m_a, g_a), (m_b, g_b) = a, b
     failed = []
-    log(f"hold {label}: {m_a} vs {m_b} (tolerance {TOL_STEP_LOSS})")
+    log(f"hold {label}: {m_a} vs {m_b} (tolerance "
+        f"{TOL_STEP_LOSS if losses else 'none: logged'})")
     for k in m_a:
-        if not np.isclose(m_a[k], m_b[k], **TOL_STEP_LOSS):
+        if losses and not np.isclose(m_a[k], m_b[k], **TOL_STEP_LOSS):
             failed.append(f"{label}: {k}")
     assert sorted(g_a) == sorted(g_b)
     errs = {}
@@ -1318,6 +1385,13 @@ def layout_copies():
             mod.conv2d = conv2d
 
 
+def to_float64(model):
+    """The model's parameters and its compute dtype in float64 (the
+    trainer builds G and D with its float32 or bfloat16 compute dtype)."""
+    model.double()
+    model.dtype = torch.float64
+
+
 FORMS = "parity, FUSED_G off and plain K4/K5"
 MERGED = FORMS + ", G's parity convs merged-tap"
 
@@ -1330,21 +1404,23 @@ def _step_grads_f64(plain, batch, z_d, z_g):
     set_attention_kernel(plain, False)
     s, a = plain.state, plain.args
     for model in (s.g, s.g_target, s.d):
-        model.double()
+        to_float64(model)
     plain._train_step = make_cnn_train_step(
         grad_penalty=a.grad_penalty, ema_factor=a.lr_target_g,
         dtype=torch.float64, iters_d=a.iters_d, r1_interval=a.r1_interval)
     return _step_grads(plain, batch, z_d.double(), z_g.double())
 
 
-def hold_parity(trainer, dev, batch, z_d, z_g):
+def hold_parity(trainer, dev, batch, z_d, z_g, par16=None):
     """G's and D's forwards on the parity path against the plain ones on
     the same weights, and each against the plain G in float64; then one
     step each from the same state, batch and latents: the parity path with
     the kernels, the same with FUSED_G off and the fused blocks on their
     plain versions (and with merged-tap convs in G), the plain '512thin'
     step (and with channels_last weights), each against the plain step in
-    float64 (see TOL_PARITY_STEP_GRAD). Returns the plain trainer."""
+    float64 (see TOL_PARITY_STEP_GRAD); with ``par16``, the bfloat16 parity
+    trainer, its step against the same float64 step
+    (``hold_parity_bf16``). Returns the plain trainer."""
     from tartangan_torch.train.cnn import CNNTrainer
     trainer.build_models()
     init = {k: copy.deepcopy(m.state_dict()) for k, m in
@@ -1406,7 +1482,7 @@ def hold_parity(trainer, dev, batch, z_d, z_g):
             hook.remove()
     set_fused_kernels(trainer, True)
     set_attention_kernel(plain, False)
-    plain.state.g.double()
+    to_float64(plain.state.g)
     with torch.no_grad():
         out64 = plain.state.g(z.double(), train=True)
     for label, out in outs.items():
@@ -1446,6 +1522,8 @@ def hold_parity(trainer, dev, batch, z_d, z_g):
     for label in (FORMS, "plain"):
         failed += _hold(f"parity, kernels vs {label}",
                         steps["parity, kernels"], steps[label])[1]
+    if par16 is not None:
+        failed += hold_parity_bf16(par16, init, batch, z_d, z_g, exact)
     failed += hold_smooth_step(batch, z_d, z_g)
     if failed:
         raise AssertionError(f"parity holds failed: {failed}")
@@ -1600,17 +1678,21 @@ def phase_no_sync(dev):
         f"call; launches {launched}")
 
 
-def _conv_bound_ms(macs, nbytes):
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2 * macs / PEAK_F32_FLOPS * 1e3
+def _bound(nbytes, flops, peak):
+    """(least ms, what bounds it): the bytes at PEAK_BYTES against the
+    operations at ``peak``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _conv_bound_ms(macs, nbytes):
+    return _bound(nbytes, 2 * macs, PEAK_F32_FLOPS)
 
 
 def _tf32x3_bound_ms(macs, nbytes):
     """The bound of ``macs`` float32 products done as three TF32 products
     each on the tensor cores, against the bytes."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 3 * 2 * macs / PEAK_TF32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return _bound(nbytes, 3 * 2 * macs, PEAK_TF32_FLOPS)
 
 
 def time_parity_kernels(dev, errs):
@@ -2052,7 +2134,9 @@ def build_gblock_variants(dirs):
 
 def raw_gblock_a(lib, x, m1, v1, s1, o1, w1, b1):
     """K4 of a library with the checkout's C arguments, as
-    ``ops.gblock.gblock_a`` calls it (the scratch sized by the library)."""
+    ``ops.gblock.gblock_a`` calls it (the scratch sized by the library),
+    float32 (the dtype argument 0; a source from before it took one reads
+    0 as its stream, the default stream, which PyTorch's is)."""
     b, h, w, cin = x.shape
     cout = w1.shape[0]
     y1p = torch.empty((b, h, w, 4 * cout), device=x.device)
@@ -2062,7 +2146,7 @@ def raw_gblock_a(lib, x, m1, v1, s1, o1, w1, b1):
     err = lib.tt_gblock_a(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                           m1.data_ptr(), v1.data_ptr(), s1.data_ptr(),
                           o1.data_ptr(), y1p.data_ptr(), stats.data_ptr(),
-                          work.data_ptr(), n, b, h, w, cin, cout,
+                          work.data_ptr(), n, b, h, w, cin, cout, 0,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K4 failed: cudaError {err}")
@@ -2081,7 +2165,7 @@ def raw_gblock_b(lib, y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
                           None if bp is None else bp.data_ptr(),
                           m2.data_ptr(), v2.data_ptr(), s2.data_ptr(),
                           o2.data_ptr(), out.data_ptr(), work.data_ptr(), n,
-                          b, h, w, cin, cout,
+                          b, h, w, cin, cout, 0,
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K5 failed: cudaError {err}")
@@ -2288,6 +2372,354 @@ def gblock_ab(dirs):
     return rows
 
 
+# ------------------------------------------------- bfloat16 (--dtype bf16)
+def _bf16_scaled_err(out, ref):
+    assert out.dtype == ref.dtype == torch.bfloat16, (out.dtype, ref.dtype)
+    scale = ref.float().abs().max()
+    return ((out.float() - ref.float()).abs().max() / scale).item(), scale
+
+
+def phase_parity_kernels_bf16(dev):
+    """K3 (both modes), K4 and K5 in bfloat16 against their bfloat16 plain
+    versions (which round at the kernels' points) at the '512thin' G
+    shapes and the ragged ones (TOL_PARITY_BF16), K4's sums as float32
+    sums of the y1p it stored; returns the largest max-abs error of each at
+    the '512thin' shapes."""
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv_plain,
+        merged_tap_conv,
+    )
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = {"parity_conv": 0.0, "gblock_a": 0.0, "gblock_b": 0.0}
+    bf = torch.bfloat16
+    for label, b, h, wd, cin, cout in K3_SHAPES:
+        for mode in ("up", "full"):
+            wcin = cin if mode == "up" else cout
+            ci = wcin if mode == "up" else 4 * wcin
+            x = torch.randn(b, h, wd, ci, device=dev, generator=gen).to(bf)
+            w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+            bias = torch.randn(cout, device=dev, generator=gen)
+            out = merged_tap_conv(x, w, cout, mode, bias=bias)
+            ref = fused_parity_conv_plain(x, w, cout, mode, bias)
+            torch.cuda.synchronize()
+            err, scale = _bf16_scaled_err(out, ref)
+            log(f"kernel parity_conv bfloat16 '{mode}' {label} x "
+                f"{tuple(x.shape)}: max_abs_err {err * scale:.3e}, {err:.3e} "
+                f"of the plain output's max-abs (tolerance {TOL_PARITY_BF16}"
+                f" on the latter)")
+            if err > TOL_PARITY_BF16["atol"]:
+                raise AssertionError(f"parity_conv bf16 {mode} {label}: {err}")
+            if not label.startswith("ragged"):
+                worst["parity_conv"] = max(worst["parity_conv"],
+                                           err * scale.item())
+            del x, out, ref
+    for label, b, h, cin, cout in GBLOCK_SHAPES:
+        p = gblock_params(cin, cout, dev, gen)
+        x = torch.randn(b, h, h, cin, device=dev, generator=gen).to(bf)
+        m1, v1 = G._moments(x)
+        y1p, stats = G.gblock_a(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        y1r, statr = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                      p["b1"])
+        n = 4 * b * h * h
+        m2 = statr.reshape(2, 4, cout).sum(1)[0] / n
+        v2 = statr.reshape(2, 4, cout).sum(1)[1] / n - m2 ** 2
+        args = (y1r, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"], p["wp"],
+                p["bp"])
+        outb, refb = G.gblock_b(*args), G.gblock_b_plain(*args)
+        torch.cuda.synchronize()
+        if stats.dtype != torch.float32:
+            raise AssertionError(f"K4's sums are {stats.dtype}")
+        # the sums are of the stored, rounded y1p
+        y = y1p.double().reshape(-1, 4 * cout)
+        own = torch.stack([y.sum(0), y.square().sum(0)])
+        sum_err = ((stats.double() - own).abs()
+                   / torch.stack([y.abs().sum(0), y.square().sum(0)])
+                   .clamp_min(1e-30)).max().item()
+        e_a, s_a = _bf16_scaled_err(y1p, y1r)
+        e_b, s_b = _bf16_scaled_err(outb, refb)
+        log(f"kernel gblock_a/gblock_b bfloat16 {label} x {tuple(x.shape)} "
+            f"Cout {cout}: y1p {e_a * s_a:.3e} ({e_a:.3e} of max-abs), out_p "
+            f"{e_b * s_b:.3e} ({e_b:.3e}) (tolerance {TOL_PARITY_BF16} after "
+            f"dividing by max-abs); K4's float32 sums against those of its "
+            f"own y1p {sum_err:.3e} of the sums of |y| (tolerance 1e-5)")
+        if max(e_a, e_b) > TOL_PARITY_BF16["atol"] or sum_err > 1e-5:
+            raise AssertionError(f"gblock bf16 {label}: {e_a}, {e_b}, "
+                                 f"{sum_err}")
+        if label.startswith("block"):
+            worst["gblock_a"] = max(worst["gblock_a"], e_a * s_a.item())
+            worst["gblock_b"] = max(worst["gblock_b"], e_b * s_b.item())
+    return worst
+
+
+def time_bf16_kernels(dev, errs16):
+    """K1-K5 in bfloat16 at the bf16 parity step's shapes: the kernel's
+    device time (profiler), plain version, one library call and the bound
+    (bfloat16 bytes of the inputs and outputs, float32 ones for lse and
+    the statistics, against the FLOPs at 989 TFLOP/s, the bf16 tensor-core
+    peak). K1/K2 at G (D under ``shape_d``), K3-K5 summed over the launches
+    of one G forward. Returns {name: the bf16 record}."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops import gblock as G
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.ops.attention import (_bwd, _fwd,
+                                               attention_bwd_plain,
+                                               attention_plain)
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv_plain,
+        merged_tap_conv,
+    )
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+
+    def rec(ms, plain_ms, lib, bound, err):
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": lib, "max_abs_err": err}
+    for label, b, lq, lk, ck, cv in (("G", 64, 4096, 1024, 8, 32),
+                                     ("D", 64, 1024, 256, 8, 32)):
+        q, k, v, do = (torch.randn(s, device=dev, generator=gen).to(bf)
+                       for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
+                                 (b, lq, cv)))
+
+        def k1():
+            return _fwd(q, k, v, with_lse=True)
+        o, lse = k1()
+        err1 = (o.float() - attention_plain(q, k, v).float()).abs().max()
+
+        def k2():
+            return _bwd(q, k, v, do, o, lse)
+        err2 = max((a.float() - r.float()).abs().max().item()
+                   for a, r in zip(k2(), attention_bwd_plain(q, k, v, do)))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves, scale=1.0)
+        r1 = rec(statistics.median([device_ms(k1, K1_EVENTS)
+                                    for _ in range(2)]),
+                 cuda_ms(lambda: attention_plain(q, k, v)),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=1.0)),
+                 attention_bound_ms(b, lq, lk, ck, cv, 2,
+                                    peak=PEAK_BF16_FLOPS), err1.item())
+        r2 = rec(statistics.median([device_ms(k2, K2_EVENTS)
+                                    for _ in range(2)]),
+                 cuda_ms(lambda: attention_bwd_plain(q, k, v, do), iters=5),
+                 cuda_ms(lambda: torch.autograd.grad(
+                     sdpa, leaves, do, retain_graph=True), iters=5),
+                 attention_bound_ms(b, lq, lk, ck, cv, 2, backward=True,
+                                    peak=PEAK_BF16_FLOPS), err2)
+        for name, r in (("attention_fwd", r1), ("attention_bwd", r2)):
+            log(f"time {name} bfloat16 {label} B{b} Lq{lq} Lk{lk}: kernel "
+                f"device {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa"
+                f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); max_abs_err {r['max_abs_err']:.3e}")
+            if label == "G":
+                out[name] = r
+            else:
+                out[name]["shape_d"] = {
+                    "shape": f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}", **r}
+        del q, k, v, do, o, lse, leaves, sdpa
+    # K3-K5 over one G forward: ms, plain, library, bytes, flops
+    tot = {k: [0.0] * 5 for k in ("parity_conv", "gblock_a", "gblock_b")}
+    for label, b, h, wd, cin, cout in K3_SHAPES[:4]:
+        for mode in ("up", "full"):
+            wcin = cin if mode == "up" else cout
+            ci = wcin if mode == "up" else 4 * wcin
+            x = torch.randn(b, h, wd, ci, device=dev, generator=gen).to(bf)
+            w = 0.1 * torch.randn(cout, wcin, 3, 3, device=dev, generator=gen)
+            bias = torch.randn(cout, device=dev, generator=gen)
+            w3 = (P.pack_up_conv if mode == "up" else P.pack_full_conv)(w)
+            w3, b4 = w3.to(bf), bias.repeat(4).to(bf)
+            xc = x.permute(0, 3, 1, 2)
+            it = 5 if h >= 128 else 20
+
+            def kern():
+                return merged_tap_conv(x, w, cout, mode, bias=bias)
+            ms = statistics.median([device_ms(kern, K3_EVENTS)
+                                    for _ in range(2)])
+            plain = cuda_ms(lambda: fused_parity_conv_plain(
+                x, w, cout, mode, bias), iters=it)
+            lib = cuda_ms(lambda: F.conv2d(xc, w3, b4, padding=1), iters=it)
+            taps = 16 * wcin if mode == "up" else 36 * wcin
+            flops = 2 * b * h * wd * taps * cout
+            nbytes = 2 * (x.numel() + b * h * wd * 4 * cout) \
+                + 4 * (w.numel() + cout)
+            bound = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+            log(f"time parity_conv bfloat16 '{mode}' {label}: kernel device "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, F.conv2d bf16 3x3-packed"
+                f" + bias {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            for i, val in enumerate((ms, plain, lib, nbytes, flops)):
+                tot["parity_conv"][i] += val
+            del x, xc
+    for label, b, h, cin, cout in GBLOCK_SHAPES[:2]:
+        p = gblock_params(cin, cout, dev, gen)
+        x = torch.randn(b, h, h, cin, device=dev, generator=gen).to(bf)
+        m1, v1 = G._moments(x)
+        y1p, st = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                   p["b1"])
+        n = 4 * b * h * h
+        m2 = st.reshape(2, 4, cout).sum(1)[0] / n
+        v2 = st.reshape(2, 4, cout).sum(1)[1] / n - m2 ** 2
+        args_a = (x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+        args_b = (y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],
+                  p["wp"], p["bp"])
+        pos = b * h * h
+        for name, kern, plain, args, events, flops, nbytes in (
+                ("gblock_a", G.gblock_a, G.gblock_a_plain, args_a, K4_EVENTS,
+                 2 * pos * 16 * cin * cout,
+                 2 * (x.numel() + y1p.numel()) + 4 * 2 * 4 * cout),
+                ("gblock_b", G.gblock_b, G.gblock_b_plain, args_b, K5_EVENTS,
+                 2 * pos * 36 * cout * cout,
+                 2 * (2 * y1p.numel() + x.numel()))):
+            ms = statistics.median([device_ms(lambda: kern(*args), events)
+                                    for _ in range(2)])
+            plain_ms = cuda_ms(lambda: plain(*args))
+            bound = _bound(nbytes, flops, PEAK_BF16_FLOPS)
+            log(f"time {name} bfloat16 {label} x {tuple(x.shape)}: kernel "
+                f"device {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]})")
+            for i, val in enumerate((ms, plain_ms, 0.0, nbytes, flops)):
+                tot[name][i] += val
+    for name, (ms, plain_ms, lib, nbytes, flops) in tot.items():
+        out[name] = rec(ms, plain_ms, lib if name == "parity_conv" else None,
+                        _bound(nbytes, flops, PEAK_BF16_FLOPS), errs16[name])
+        log(f"kernels line {name} bfloat16, summed over one G forward: "
+            f"kernel device {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{out[name]['bound_ms']:.4f} ms")
+    return out
+
+
+def hold_parity_bf16(par16, init, batch, z_d, z_g, exact):
+    """The bfloat16 parity step with K1-K5 against the plain '512thin' step
+    in float64 (``exact``, from the same weights, batch and latents), within
+    PARITY_WITNESS_FACTOR times the farthest bfloat16 step without the
+    kernels (the parity forms with FUSED_G off, the fused blocks and the
+    attention on their plain versions; the plain path on the plain
+    attention): gradients as in the float32 hold, losses and gp by the same
+    rule. Returns what failed."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    plain16 = CNNTrainer.create_from_cli([
+        str(TRAIN_DIR / "tartans512.npy"),
+        "--config", "512thin", "--parity-blocks", "off", "--batch-size",
+        str(batch.shape[0]), "--dtype", "bf16", "--device", "cuda",
+        "--run-id", "plain16", "--output", str(PARITY_DIR / "out")])
+
+    def fresh(t, plain_tree):
+        t.build_models()
+        t.state.g.load_state_dict(plain_state_from_fused(init["g"])
+                                  if plain_tree else init["g"])
+        t.state.d.load_state_dict(init["d"])
+    kern = "bf16 parity, kernels"
+    steps = {}
+    fresh(par16, False)
+    set_fused_kernels(par16, True)
+    steps[kern] = _step_grads(par16, batch, z_d, z_g, plain_names=True)
+    fresh(par16, False)
+    set_fused_kernels(par16, False)
+    set_attention_kernel(par16, False)
+    steps[f"bf16 {FORMS}, plain attention"] = _step_grads(
+        par16, batch, z_d, z_g, plain_names=True)
+    set_fused_kernels(par16, True)
+    set_attention_kernel(par16, True)
+    fresh(plain16, True)
+    set_attention_kernel(plain16, False)
+    steps["bf16 plain, plain attention"] = _step_grads(plain16, batch, z_d,
+                                                       z_g)
+    del plain16
+    witnesses, failed = {}, []
+    for label, step in steps.items():
+        if label != kern:
+            witnesses[label], _ = _hold(f"witness: {label} vs float64", step,
+                                        exact, losses=False)
+    spread = {tag: {k: max(w[tag][k] for w in witnesses.values())
+                    for k in ("max", "norm")} for tag in ("g", "d")}
+    failed += _hold(f"{kern} vs float64", steps[kern], exact, spread,
+                    losses=False)[1]
+    m64 = exact[0]
+    for k, v in steps[kern][0].items():
+        far = max(abs(steps[w][0][k] - m64[k]) for w in witnesses)
+        tol = max(PARITY_WITNESS_FACTOR * far,
+                  TOL_STEP_LOSS["atol"] + TOL_STEP_LOSS["rtol"] * abs(m64[k]))
+        log(f"hold {kern} vs float64: {k} {v:.6f} vs {m64[k]:.6f}, error "
+            f"{abs(v - m64[k]):.3e} (tolerance {tol:.3e}: "
+            f"{PARITY_WITNESS_FACTOR}x the farthest bf16 step without the "
+            f"kernels, {far:.3e})")
+        if abs(v - m64[k]) > tol:
+            failed.append(f"{kern}: {k}")
+    for label in witnesses:
+        _hold(f"{kern} vs {label}", steps[kern], steps[label], losses=False)
+    return failed
+
+
+def time_steps(label, trainers, batch, z_d, z_g, reps=3):
+    """Each trainer's step in turns (host clock, synchronized, after a
+    warm-up), its peak device memory and a profile (device time by kernel,
+    idle share). Returns {name: median ms}."""
+    def once(t):
+        t0 = time.perf_counter()
+        t._train_step(t.state, batch, z_d, z_g)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    for t in trainers.values():
+        once(t)
+    times = {name: [] for name in trainers}
+    for _ in range(reps):
+        for name, t in trainers.items():
+            times[name].append(once(t))
+    b = batch.shape[0]
+    med = {name: statistics.median(v) for name, v in times.items()}
+    for name, t in trainers.items():
+        torch.cuda.reset_peak_memory_stats()
+        once(t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"time train step {label} {name} B{b} (host clock, synchronized,"
+            f" {reps} in turns after warm-up): median {med[name]:.3f} ms "
+            f"{[round(x, 3) for x in times[name]]}, {1e3 * b / med[name]:.1f}"
+            f" images/s; peak device memory {peak:.2f} GiB")
+        profile_call(f"train step {label} {name} B{b}", lambda: once(t))
+    return med
+
+
+def phase_128(archive):
+    """Config '128' (the JAX package's main path and ``bench.py``'s
+    headline: blocks 128-128-64-32-16, latent 256, no attention, plain
+    blocks) at B 128 in float32 and in bfloat16: 3 steps each through the
+    trainer's entry points (128x128 crops of the 512x512 archive, one batch
+    an epoch), finite losses, a float32 checkpoint; then the two steps
+    timed in turns, with images/s, peak memory and a profile each."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    out_root = ROOT / "build" / "chip_smoke_128" / "out"
+    trainers = {}
+    for dtype in ("f32", "bf16"):
+        shutil.rmtree(out_root / dtype, ignore_errors=True)
+        t = CNNTrainer.create_from_cli([
+            str(archive), "--config", "128", "--batch-size", "128",
+            "--epochs", "3", "--dtype", dtype, "--device", "cuda",
+            "--run-id", dtype, "--output", str(out_root), "--log-iters", "1",
+            "--log-progress-newlines", "--gen-freq", "1000"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = {k: [float(v) for v in t.logs[k]]
+                  for k in ("g_loss", "d_loss", "gp")}
+        log(f"128: config '128' B128 {dtype}: {t.steps} steps in {wall:.1f} "
+            f"s (host clock, sampling and checkpoints included); losses "
+            f"{losses}")
+        for k, vals in losses.items():
+            assert len(vals) == 3 and all(np.isfinite(vals)), (k, vals)
+        assert {p.dtype for p in t.state.g.parameters()} == {torch.float32}
+        trainers[dtype] = t
+    t = trainers["f32"]
+    batch = torch.from_numpy(t.dataset.batch(
+        np.arange(128), np.random.default_rng(0))).to(t.device)
+    gen = torch.Generator(device=t.device).manual_seed(17)
+    z_d = torch.randn((1, 128, 256), generator=gen, device=t.device)
+    z_g = torch.randn((128, 256), generator=gen, device=t.device)
+    time_steps("'128'", trainers, batch, z_d, z_g)
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -2333,10 +2765,12 @@ def main():
             return 0
         errs = phase_kernels(dev)
         perrs = phase_parity_kernels(dev)
+        perrs16 = phase_parity_kernels_bf16(dev)
         phase_no_sync(dev)
         # the kernels' device times before the train steps' long profiles,
         # after which the profiler was seen to drop kernel events
         records = time_attention(dev, errs) + time_parity_kernels(dev, perrs)
+        bf16 = time_bf16_kernels(dev, perrs16)
         gc.collect()
         torch.cuda.empty_cache()
         app, serve_launches = phase_serve()
@@ -2352,18 +2786,35 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
-        par, par_launches, _ = phase_parity_train(TRAIN_DIR / "tartans512.npy")
+        archive = TRAIN_DIR / "tartans512.npy"
+        par, par_launches, _ = phase_parity_train(archive)
         log(f"parity path launches {par_launches} (the kernels line counts "
             f"K3-K5 on this path)")
+        par16, par16_launches, _ = phase_parity_train(archive, "bf16")
+        log(f"bfloat16 parity path launches {par16_launches} (the kernels "
+            f"line's bf16 records count K1-K5 on this path)")
         batch = torch.from_numpy(par.dataset.images[:64]).to(dev)
         gen = torch.Generator(device=dev).manual_seed(7)
         z_d = torch.randn((1, 64, 256), generator=gen, device=dev)
         z_g = torch.randn((64, 256), generator=gen, device=dev)
-        plain = hold_parity(par, dev, batch, z_d, z_g)
+        plain = hold_parity(par, dev, batch, z_d, z_g, par16)
         time_parity_step(par, plain, batch, z_d, z_g)
-        del par, plain, batch
+        par16.build_models()
+        par.build_models()
+        time_steps("'512thin' parity path", {"float32": par,
+                                             "bfloat16": par16},
+                   batch, z_d, z_g)
+        del par, par16, plain, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_128(archive)
+        k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
-            rec["launches"] = {**launches, **par_launches}[rec["name"]]
+            name = rec["name"]
+            rec["launches"] = par_launches[name] if name in k3_k5 \
+                else launches[name]
+            rec["dtypes"] = ["float32", "bfloat16"]
+            rec["bf16"] = {"launches": par16_launches[name], **bf16[name]}
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

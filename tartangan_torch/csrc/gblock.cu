@@ -1,5 +1,5 @@
 // K4 and K5: the fused residual generator block's two convolutions, for
-// Hopper (sm_90a), float32 in and out.
+// Hopper (sm_90a), float32 or bfloat16 in and out.
 //
 // Replace the Pallas TPU kernels tartangan_tpu/ops/pallas/gblock.py:196
 // (_kernel_a) and :234 (_kernel_b), launched by _fused_gblock_fwd_impl
@@ -69,12 +69,39 @@
 //    fragment feeds 4 n-tiles and each B fragment 4 m-tiles; both come
 //    from shared memory by ldmatrix (the halo's pixel stride and B's row
 //    swizzle make both conflict-free).
+//
+// bfloat16 (--dtype bf16, the TPU kernels' production form): src, x and out
+// are bfloat16; the statistics, the scratch and the weights' packing are
+// float32. It rounds where the TPU kernels do: BatchNorm in float32, its
+// result rounded to bfloat16 before leaky-relu, whose product by 0.2 is
+// taken in bfloat16 (_act_from_f32, gblock.py:82-87); the packed weights
+// rounded to bfloat16 once (:289, :326); K4 adds b1 in float32 and rounds
+// y1 once as it stores it, and takes bn2's sums of the rounded values in
+// float32 (:219-227); K5 adds b2, the shortcut and bp in float32 and rounds
+// once (:260-261). Both operands of every product are then bfloat16, exact
+// in TF32 (8 of its 11 significant bits), so the 3xTF32 split collapses to
+// its hi*hi product with no loss: one TF32 mma a product, no lo operands.
+// The per-chunk float32 summation stays (the tensor cores' own
+// accumulation rounds toward zero). bf16 mma (m16n8k16) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace gb {
+
+using bf16 = __nv_bfloat16;
+
+// the element type of this library's instances: ops/build.py builds this
+// source once a dtype, bfloat16 with -DTT_BFLOAT16
+#ifdef TT_BFLOAT16
+using Elem = bf16;
+constexpr int kBfloat16 = 1;
+#else
+using Elem = float;
+constexpr int kBfloat16 = 0;
+#endif
 
 constexpr int kThreads = 256;  // 8 warps: 4 output parities x 2
 constexpr int kT = 8;          // tile rows and columns: 64 positions
@@ -99,22 +126,23 @@ struct Cfg {
   static_assert(kWN % 2 == 0, "ldmatrix.x4 loads two n-tiles");
 };
 
+// T: float or bf16, the type of src, x and out
 struct Args {
-  const float* src;    // x (K4) or y1p (K5), NHWC
-  const float* x;      // K5: the shortcut's input (B, H, W, cin)
+  const void* src;     // x (K4) or y1p (K5), NHWC, T
+  const void* x;       // K5: the shortcut's input (B, H, W, cin), T
   const float* whi;    // packed weights, hi and lo parts
   const float* wlo;
   const float* bn;     // [3][cpad]: mean, mul, offset of src's channels
   const float* bias;   // (co)
   const float* bias2;  // (co) or null: K5's bp
   const float* wp;     // (cin, co) or null: K5's projection
-  float* out;          // (B, H, W, 4*co)
+  void* out;           // (B, H, W, 4*co), T
   float* partial;      // K4: (rows, 2, 4*co)
   int b, h, w, cin, co;
   int cpp;             // channels of each input parity (K4 cin, K5 co)
   int cpad;
   int nch;             // chunks
-  int vec;             // 16-byte loads of src
+  int vec;             // quad loads of src (16 or 8 bytes)
   int tiles_h, tiles_w;  // tiles an image
 };
 
@@ -161,6 +189,57 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ float leaky_relu(float v) {
   return v >= 0.f ? v : v * 0.2f;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// what the activation stages: float32, leaky-relu(bn(v)) as above;
+// bfloat16, _act_from_f32: the sign from float32, the product by
+// bfloat16(0.2) = 0.2001953125 rounded to bfloat16
+template <class T>
+__device__ __forceinline__ float act_of(float t);
+
+template <>
+__device__ __forceinline__ float act_of<float>(float t) {
+  return leaky_relu(t);
+}
+
+template <>
+__device__ __forceinline__ float act_of<bf16>(float t) {
+  const float c = round_bf16(t);
+  return t >= 0.f ? c : round_bf16(c * 0.2001953125f);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
+
+// a quad of src's channels as float32 (p aligned for the quad)
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_quad(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// two neighbouring outputs (p aligned for the pair)
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_one(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store_one(bf16* p, float a) {
+  *p = __float2bfloat16(a);
 }
 
 // B's smem (and packed) layout: row r = block * NC + n of 8 floats, its two
@@ -225,12 +304,13 @@ __device__ __forceinline__ int group_of_thread() {
   return static_cast<int>(threadIdx.x) % Cfg<FULL>::GP;
 }
 
-// this thread's share of chunk c's halo, raw, into registers
-template <bool FULL>
+// this thread's share of chunk c's halo, raw, into registers as float32
+template <bool FULL, class T>
 __device__ __forceinline__ void load_a(const Args& a, const Tile& tl, int c,
                                        uint32_t mask,
                                        float4 (&ra)[Cfg<FULL>::RA]) {
   using C = Cfg<FULL>;
+  const T* src = static_cast<const T*>(a.src);
   const int cx = FULL ? 4 * a.co : a.cin;
   const long long img = static_cast<long long>(tl.b) * a.h;
   const int g = group_of_thread<FULL>();
@@ -242,14 +322,14 @@ __device__ __forceinline__ void load_a(const Args& a, const Tile& tl, int c,
     const int gi = tl.i0 - 1 + pix / C::HX, gj = tl.j0 - 1 + pix % C::HX;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (((mask >> r) & 1) && k < a.cpp) {
-      const float* p = a.src + ((img + gi) * a.w + gj) * cx + ch;
+      const T* p = src + ((img + gi) * a.w + gj) * cx + ch;
       if (a.vec) {
-        v = __ldg(reinterpret_cast<const float4*>(p));
+        v = load_quad(p);
       } else {
-        v.x = __ldg(p);
-        if (k + 1 < a.cpp) v.y = __ldg(p + 1);
-        if (k + 2 < a.cpp) v.z = __ldg(p + 2);
-        if (k + 3 < a.cpp) v.w = __ldg(p + 3);
+        v.x = to_float(p[0]);
+        if (k + 1 < a.cpp) v.y = to_float(p[1]);
+        if (k + 2 < a.cpp) v.z = to_float(p[2]);
+        if (k + 3 < a.cpp) v.w = to_float(p[3]);
       }
     }
     ra[r] = v;
@@ -258,8 +338,9 @@ __device__ __forceinline__ void load_a(const Args& a, const Tile& tl, int c,
 
 // group r of load_a's registers through the prologue (BatchNorm's
 // constants from shared memory, rows padded with zeros to cpad), split,
-// into (hi, lo); zero outside the image and past the last channel
-template <bool FULL>
+// into (hi, lo); zero outside the image and past the last channel.
+// bfloat16: the activation is bfloat16, exact in TF32: hi only
+template <bool FULL, class T>
 __device__ __forceinline__ void store_a(const Args& a, int c, uint32_t mask,
                                         int r, const float4& raw,
                                         const float* sbn, float* hi,
@@ -277,22 +358,27 @@ __device__ __forceinline__ void store_a(const Args& a, int c, uint32_t mask,
   const float mv[4] = {mean.x, mean.y, mean.z, mean.w};
   const float uv[4] = {mul.x, mul.y, mul.z, mul.w};
   const float ov[4] = {off.x, off.y, off.z, off.w};
+  constexpr bool split = sizeof(T) == 4;
   float h4[4], l4[4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const float t = in && k + u < a.cpp
-                        ? leaky_relu(fmaf(v[u] - mv[u], uv[u], ov[u]))
+                        ? act_of<T>(fmaf(v[u] - mv[u], uv[u], ov[u]))
                         : 0.f;
-    h4[u] = to_tf32(t);
+    h4[u] = split ? to_tf32(t) : t;
     l4[u] = to_tf32(t - h4[u]);
   }
   const int o = (e / C::GP) * C::LDA + 4 * g;
   *reinterpret_cast<float4*>(hi + o) = make_float4(h4[0], h4[1], h4[2], h4[3]);
-  *reinterpret_cast<float4*>(lo + o) = make_float4(l4[0], l4[1], l4[2], l4[3]);
+  if (split) {
+    *reinterpret_cast<float4*>(lo + o) =
+        make_float4(l4[0], l4[1], l4[2], l4[3]);
+  }
 }
 
-// chunk c's weights (hi, lo) of this CTA's channel slice, as packed
-template <bool FULL>
+// chunk c's weights (hi, and lo if split) of this CTA's channel slice, as
+// packed
+template <bool FULL, bool SPLIT>
 __device__ __forceinline__ void load_b(const Args& a, int c, float* hi,
                                        float* lo) {
   using C = Cfg<FULL>;
@@ -300,7 +386,7 @@ __device__ __forceinline__ void load_b(const Args& a, int c, float* hi,
       (static_cast<long long>(blockIdx.y) * a.nch + c) * C::BS;
   for (int e = threadIdx.x; e < C::BS / 4; e += kThreads) {
     cp_async16(hi + 4 * e, a.whi + base + 4 * e);
-    cp_async16(lo + 4 * e, a.wlo + base + 4 * e);
+    if (SPLIT) cp_async16(lo + 4 * e, a.wlo + base + 4 * e);
   }
 }
 
@@ -311,7 +397,8 @@ __device__ __forceinline__ void load_b(const Args& a, int c, float* hi,
 // float32 FMA loop's error; summed over one chunk it does not. stage(r)
 // stages the next chunk's halo group r: the calls are spread over the
 // blocks, so that their ALU work issues between the tensor-core products.
-template <bool FULL, class Stage>
+// SPLIT false (bfloat16 operands): the hi*hi products only.
+template <bool FULL, bool SPLIT, class Stage>
 __device__ __forceinline__ void compute_chunk(float (&acc)[4][kWN][4],
                                               const float* ahi,
                                               const float* alo,
@@ -349,6 +436,7 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kWN][4],
       bh[2 * np][1] = r[1];
       bh[2 * np + 1][0] = r[2];
       bh[2 * np + 1][1] = r[3];
+      if (!SPLIT) continue;
       ldmatrix_x4(r, blo + off);
       bl[2 * np][0] = r[0];
       bl[2 * np][1] = r[1];
@@ -362,12 +450,18 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kWN][4],
       const int off = pix * C::LDA + blk.slot + 4 * akh;
       uint32_t ah[4], al[4];
       ldmatrix_x4(ah, ahi + off);
-      ldmatrix_x4(al, alo + off);
-      // the small terms first, then hi*hi
+      if (SPLIT) {
+        ldmatrix_x4(al, alo + off);
+        // the small terms first, then hi*hi
 #pragma unroll
-      for (int n = 0; n < kWN; ++n) mma_tf32(t[j][n], al, bh[n][0], bh[n][1]);
+        for (int n = 0; n < kWN; ++n) {
+          mma_tf32(t[j][n], al, bh[n][0], bh[n][1]);
+        }
 #pragma unroll
-      for (int n = 0; n < kWN; ++n) mma_tf32(t[j][n], ah, bl[n][0], bl[n][1]);
+        for (int n = 0; n < kWN; ++n) {
+          mma_tf32(t[j][n], ah, bl[n][0], bl[n][1]);
+        }
+      }
 #pragma unroll
       for (int n = 0; n < kWN; ++n) mma_tf32(t[j][n], ah, bh[n][0], bh[n][1]);
     }
@@ -382,9 +476,10 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kWN][4],
       for (int i = 0; i < 4; ++i) acc[j][n][i] += t[j][n][i];
 }
 
-template <bool FULL>
+template <bool FULL, class T>
 __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const Args a) {
   using C = Cfg<FULL>;
+  constexpr bool split = sizeof(T) == 4;
   extern __shared__ __align__(16) float smem[];
   float* sa = smem;               // [buffer][hi, lo][AS]
   float* sb = smem + 4 * C::AS;   // [buffer][hi, lo][BS]
@@ -403,13 +498,13 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const Args a) {
   for (int e = threadIdx.x; e < 3 * a.cpad; e += kThreads) sbn[e] = a.bn[e];
   const uint32_t mask = halo_mask<FULL>(a, tl);
   float4 ra[C::RA];
-  load_a<FULL>(a, tl, 0, mask, ra);
-  load_b<FULL>(a, 0, sb, sb + C::BS);
+  load_a<FULL, T>(a, tl, 0, mask, ra);
+  load_b<FULL, split>(a, 0, sb, sb + C::BS);
   cp_async_commit();
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < C::RA; ++r) {
-    store_a<FULL>(a, 0, mask, r, ra[r], sbn, sa, sa + C::AS);
+    store_a<FULL, T>(a, 0, mask, r, ra[r], sbn, sa, sa + C::AS);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -417,18 +512,18 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const Args a) {
     const int cur = c & 1, nxt = cur ^ 1;
     const bool more = c + 1 < a.nch;
     if (more) {
-      load_a<FULL>(a, tl, c + 1, mask, ra);
-      load_b<FULL>(a, c + 1, sb + 2 * nxt * C::BS,
-                           sb + (2 * nxt + 1) * C::BS);
+      load_a<FULL, T>(a, tl, c + 1, mask, ra);
+      load_b<FULL, split>(a, c + 1, sb + 2 * nxt * C::BS,
+                          sb + (2 * nxt + 1) * C::BS);
       cp_async_commit();
     }
     float* nhi = sa + 2 * nxt * C::AS;
     float* nlo = sa + (2 * nxt + 1) * C::AS;
-    compute_chunk<FULL>(
+    compute_chunk<FULL, split>(
         acc, sa + 2 * cur * C::AS, sa + (2 * cur + 1) * C::AS,
         sb + 2 * cur * C::BS, sb + (2 * cur + 1) * C::BS, [&](int r) {
           if (more) {
-            store_a<FULL>(a, c + 1, mask, r, ra[r], sbn, nhi, nlo);
+            store_a<FULL, T>(a, c + 1, mask, r, ra[r], sbn, nhi, nlo);
           }
         });
     cp_async_wait_all();
@@ -436,8 +531,11 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const Args a) {
   }
 
   // epilogue: fragment c0, c1 at (row g, columns 2*t4, 2*t4 + 1), c2, c3
-  // at row g + 8
+  // at row g + 8. The biases and the shortcut in float32, the result
+  // rounded once to T as it is stored; K4's sums of the stored values
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* xs = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
   const int q = warp >> 1, sub = warp & 1;
   const int g = lane >> 2, t4 = lane & 3;
   const int c4 = 4 * a.co;
@@ -463,29 +561,34 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const Args a) {
           float t = v[u] + a.bias[ch + u];
           if (FULL) {
             if (a.bias2 != nullptr) t += a.bias2[ch + u];
-            const float* xr = a.x + pix * a.cin;
+            const T* xr = xs + pix * a.cin;
             if (a.wp == nullptr) {
-              t += xr[ch + u];
+              t += to_float(xr[ch + u]);
             } else {
+              // the projection's weights rounded to T, as the reference
+              // casts tile(wp, 4) to the compute dtype
               float s = 0.f;
               for (int cc = 0; cc < a.cin; ++cc) {
-                s = fmaf(xr[cc], a.wp[static_cast<long long>(cc) * a.co +
-                                      ch + u], s);
+                const float wv =
+                    a.wp[static_cast<long long>(cc) * a.co + ch + u];
+                s = fmaf(to_float(xr[cc]), split ? wv : round_bf16(wv), s);
               }
               t += s;
             }
+            t = split ? t : round_bf16(t);
           } else {
+            t = split ? t : round_bf16(t);
             s1[n][u] += t;
             s2[n][u] += t * t;
           }
           v[u] = t;
         }
-        float* dst = a.out + pix * c4 + q * a.co + ch;
+        T* dst = out + pix * c4 + q * a.co + ch;
         if (ch + 1 < a.co && (a.co & 1) == 0) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+          store_pair(dst, v[0], v[1]);
         } else if (ch < a.co) {
-          dst[0] = v[0];
-          if (ch + 1 < a.co) dst[1] = v[1];
+          store_one(dst, v[0]);
+          if (ch + 1 < a.co) store_one(dst + 1, v[1]);
         }
       }
     }
@@ -526,11 +629,13 @@ struct PackArgs {
   float* wlo;
   float* bn;
   int full, ci, co, nc, nch, ny, cpp, cpad;
+  int bf16;  // round to bfloat16 (lo = 0) instead of the TF32 split
 };
 
 // the weights of every CTA slice and chunk in the main kernel's layout,
-// split into (hi, lo); bn's per-channel mean, multiplier (rsqrt(var + eps)
-// * scale) and offset, zero past cpp
+// split into (hi, lo), or for bfloat16 rounded to it (hi; lo = 0), after
+// the merged taps are summed in float32; bn's per-channel mean, multiplier
+// (rsqrt(var + eps) * scale) and offset, zero past cpp
 __global__ void pack_weights(const PackArgs p) {
   const int nblk = p.full ? 9 : 16;
   const long long per = static_cast<long long>(nblk) * p.nc * kBK;
@@ -580,9 +685,9 @@ __global__ void pack_weights(const PackArgs p) {
         }
       }
     }
-    const float hi = to_tf32(v);
+    const float hi = p.bf16 ? round_bf16(v) : to_tf32(v);
     p.whi[e] = hi;
-    p.wlo[e] = to_tf32(v - hi);
+    p.wlo[e] = p.bf16 ? 0.f : to_tf32(v - hi);
   }
 }
 
@@ -624,30 +729,31 @@ inline Layout layout(int full, int b, int h, int w, int cin, int co) {
   return l;
 }
 
-template <bool FULL>
+template <bool FULL, class T>
 cudaError_t launch_conv(const Args& a, long long tiles, long long ny,
                         cudaStream_t s) {
   using C = Cfg<FULL>;
   const int smem = C::SMEM + 3 * a.cpad * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_kernel<FULL, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  conv_kernel<FULL>
+  conv_kernel<FULL, T>
       <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(ny)),
          kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// pack, then the main kernel (and K4's reduce), on stream s
-cudaError_t run(int full, const float* src, const float* x, const float* w,
+// pack, then the main kernel (and K4's reduce), on stream s; src, x and
+// out float32 (bfloat16 = 0) or bfloat16 (1), the library's own type
+cudaError_t run(int full, const void* src, const void* x, const float* w,
                 const float* bias, const float* bias2, const float* wp,
                 const float* mean, const float* var, const float* scale,
-                const float* offset, float* out, float* stats, float* work,
+                const float* offset, void* out, float* stats, float* work,
                 long long work_floats, int b, int h, int wd, int cin, int co,
-                cudaStream_t s) {
+                int bfloat16, cudaStream_t s) {
   if (b < 1 || h < 1 || wd < 1 || cin < 1 || co < 1 ||
-      (full && wp == nullptr && cin != co)) {
+      (full && wp == nullptr && cin != co) || bfloat16 != kBfloat16) {
     return cudaErrorInvalidValue;
   }
   const Layout l = layout(full, b, h, wd, cin, co);
@@ -659,7 +765,7 @@ cudaError_t run(int full, const float* src, const float* x, const float* w,
   PackArgs p{w, mean, var, scale, offset, work, work + l.wfloats,
              work + 2 * l.wfloats, full, ci, co, kNC,
              static_cast<int>(l.nch), static_cast<int>(l.ny), ci,
-             round_up(ci, kBK)};
+             round_up(ci, kBK), bfloat16};
   const long long n = l.wfloats + p.cpad;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
@@ -687,11 +793,12 @@ cudaError_t run(int full, const float* src, const float* x, const float* w,
   a.cpp = ci;
   a.cpad = p.cpad;
   a.nch = static_cast<int>(l.nch);
-  a.vec = ci % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  a.vec = ci % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(src) % (bfloat16 ? 8 : 16) == 0;
   a.tiles_h = (h + kT - 1) / kT;
   a.tiles_w = (wd + kT - 1) / kT;
-  err = full ? launch_conv<true>(a, l.tiles, l.ny, s)
-             : launch_conv<false>(a, l.tiles, l.ny, s);
+  err = full ? launch_conv<true, Elem>(a, l.tiles, l.ny, s)
+             : launch_conv<false, Elem>(a, l.tiles, l.ny, s);
   if (err != cudaSuccess || full) return err;
   const int c4 = 4 * co;
   reduce_partials<<<(c4 + 127) / 128, 128, 0, s>>>(
@@ -712,16 +819,17 @@ extern "C" long long tt_gblock_workspace(int full, int b, int h, int w,
 // K4. x (b, h, w, cin) NHWC; w1 (co, cin, 3, 3) OIHW; b1 (co); bn1 as the
 // per-channel mean, var, scale, offset (cin); y1p (b, h, w, 4*co); stats
 // (2, 4*co); work: tt_gblock_workspace(0, ...) floats, 16-byte aligned.
-// All float32, contiguous. Returns a cudaError_t.
-extern "C" int tt_gblock_a(const float* x, const float* w1, const float* b1,
+// x and y1p float32 (bfloat16 = 0) or bfloat16 (1), the rest float32; all
+// contiguous. Returns a cudaError_t.
+extern "C" int tt_gblock_a(const void* x, const float* w1, const float* b1,
                            const float* mean1, const float* var1,
                            const float* scale1, const float* offset1,
-                           float* y1p, float* stats, float* work,
+                           void* y1p, float* stats, float* work,
                            long long work_floats, int b, int h, int w,
-                           int cin, int co, void* stream) {
+                           int cin, int co, int bfloat16, void* stream) {
   return static_cast<int>(gb::run(
       0, x, nullptr, w1, b1, nullptr, nullptr, mean1, var1, scale1, offset1,
-      y1p, stats, work, work_floats, b, h, w, cin, co,
+      y1p, stats, work, work_floats, b, h, w, cin, co, bfloat16,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -729,16 +837,17 @@ extern "C" int tt_gblock_a(const float* x, const float* w1, const float* b1,
 // (co); wp (cin, co) and bp (co), or both null for the identity shortcut
 // (cin == co); bn2 as mean, var, scale, offset (co), the same for the four
 // parities; out_p (b, h, w, 4*co); work: tt_gblock_workspace(1, ...)
-// floats. Returns a cudaError_t.
-extern "C" int tt_gblock_b(const float* y1p, const float* x, const float* w2,
+// floats. y1p, x and out_p float32 (bfloat16 = 0) or bfloat16 (1), the
+// rest float32. Returns a cudaError_t.
+extern "C" int tt_gblock_b(const void* y1p, const void* x, const float* w2,
                            const float* b2, const float* wp, const float* bp,
                            const float* mean2, const float* var2,
                            const float* scale2, const float* offset2,
-                           float* out_p, float* work, long long work_floats,
-                           int b, int h, int w, int cin, int co,
+                           void* out_p, float* work, long long work_floats,
+                           int b, int h, int w, int cin, int co, int bfloat16,
                            void* stream) {
   return static_cast<int>(gb::run(
       1, y1p, x, w2, b2, bp, wp, mean2, var2, scale2, offset2, out_p,
-      nullptr, work, work_floats, b, h, w, cin, co,
+      nullptr, work, work_floats, b, h, w, cin, co, bfloat16,
       static_cast<cudaStream_t>(stream)));
 }

@@ -1,4 +1,5 @@
-// K3: fused merged-tap parity convolution for Hopper (sm_90a), float32.
+// K3: fused merged-tap parity convolution for Hopper (sm_90a), float32 or
+// bfloat16 x and out.
 //
 // Replaces the Pallas TPU kernel tartangan_tpu/ops/pallas/parity_conv.py:99
 // (_kernel, built by _make_kernel at :75, launched by _fused_conv_impl at
@@ -48,6 +49,16 @@
 //   memory and leaves as float4 rows, consecutive threads on consecutive
 //   16 bytes of the output (a tile row of 32 positions x 4*co is one
 //   contiguous run when BN covers co).
+// - bfloat16 (--dtype bf16, the TPU kernel's production form): x is staged
+//   as bfloat16 (cp.async of 4 channels, 8 bytes; a plain load where the
+//   channels are not whole quads) and widened to float32 as a thread loads
+//   it from shared memory; the FMAs and the accumulators stay float32. The
+//   weights come as float32 holding the merged taps rounded to bfloat16
+//   (summed in float32 and rounded once, parity_conv.py:190). The epilogue
+//   rounds where the TPU kernel does: the float32 sum to bfloat16 as it is
+//   stored (:126), then the bias rounded to bfloat16 added in bfloat16
+//   (:193). A simple instantiation of the float32 design: bf16 tensor-core
+//   products are later work.
 // Plain FMA loops: no tensor cores (TF32 would move the output by ~1e-3 of
 // its max-abs), TMA or warp specialisation yet. Measured on an H100
 // (chip_smoke.py, numbers in PERF.md): about a third of the FMA bound at
@@ -57,6 +68,7 @@
 // memory at about 3 FMAs per float loaded, which makes shared-memory
 // bandwidth the first suspect; 3xTF32 tensor-core products are the way
 // past the FMA pipe.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -82,9 +94,17 @@ struct Cfg {
   static constexpr int WS = KC * 4 * T * BN;    // floats per weight buffer
   static constexpr int LDO = 4 * BN + 4;        // output staging row
   static constexpr int OS = TH * kTW * LDO;
-  static constexpr int SMEM_FLOATS = 2 * (XS + WS) > OS ? 2 * (XS + WS) : OS;
   static_assert(P % 32 == 0, "a warp must lie in one channel group");
   static_assert(LDC % 8 == 4 && LDO % 8 == 4, "odd multiple of 4 floats");
+  // [2][XS] of x as T, then [2][WS] floats of weights; the epilogue reuses
+  // the start as OS floats
+  template <class T>
+  static constexpr int smem_bytes() {
+    return 2 * (XS * static_cast<int>(sizeof(T)) + WS * 4) > OS * 4
+               ? 2 * (XS * static_cast<int>(sizeof(T)) + WS * 4)
+               : OS * 4;
+  }
+  static_assert(XS * 2 % 16 == 0, "the weights start 16-byte aligned");
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -101,6 +121,83 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+using bf16 = __nv_bfloat16;
+
+// the element type of this library's instances: ops/build.py builds this
+// source once a dtype, bfloat16 with -DTT_BFLOAT16
+#ifdef TT_BFLOAT16
+using Elem = bf16;
+constexpr int kBfloat16 = 1;
+#else
+using Elem = float;
+constexpr int kBfloat16 = 0;
+#endif
+
+// What differs between the float32 and the bfloat16 instantiation: how x is
+// staged (a channel quad, or one channel) and read back as float32, and how
+// a float32 result is rounded and stored.
+template <class T>
+struct Io;
+
+template <>
+struct Io<float> {
+  __device__ static void stage4(float* dst, const float* src, bool valid) {
+    cp_async16(dst, src, valid);
+  }
+  __device__ static void stage1(float* dst, const float* src, bool valid) {
+    cp_async4(dst, src, valid);
+  }
+  __device__ static float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ static float round(float v) { return v; }
+  __device__ static void store4(float* dst, const float4& v) {
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+  __device__ static void store1(float* dst, float v) { *dst = v; }
+};
+
+template <>
+struct Io<bf16> {
+  __device__ static void stage4(bf16* dst, const bf16* src, bool valid) {
+    cp_async8(dst, src, valid);
+  }
+  // cp.async has no 2-byte copy: a plain load, visible after the barrier
+  // that precedes the chunk's products
+  __device__ static void stage1(bf16* dst, const bf16* src, bool valid) {
+    *dst = valid ? *src : __float2bfloat16(0.f);
+  }
+  __device__ static float4 load4(const bf16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static float round(float v) {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+  __device__ static void store4(bf16* dst, const float4& v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = u;
+  }
+  __device__ static void store1(bf16* dst, float v) {
+    *dst = __float2bfloat16(v);
+  }
+};
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -115,12 +212,12 @@ __device__ __forceinline__ float comp(const float4& v, int k) {
 }
 
 struct Args {
-  const float* x;
+  const void* x;  // float or bf16, as the kernel's T
   const float* w2;
   const float* bias;
-  float* out;
+  void* out;      // T
   int b, h, w, ci, co;
-  int vec;  // 16-byte loads and stores: channel quads whole and aligned
+  int vec;  // quad loads and stores: channel quads whole and aligned
   int tiles_w, tiles_h;
 };
 
@@ -155,8 +252,8 @@ __device__ __forceinline__ Tile tile_of(const Args& a) {
 
 // stage chunk c0 (channels c0.. of x for 'up'; c0.. of each input parity
 // for 'full') of the halo tile and of the weights into xs, ws
-template <int BN, bool FULL>
-__device__ __forceinline__ void load_chunk(const Args& a, float* xs,
+template <int BN, bool FULL, class T>
+__device__ __forceinline__ void load_chunk(const Args& a, T* xs,
                                            float* ws, int c0) {
   using C = Cfg<BN, FULL>;
   const Tile tl = tile_of<BN, FULL>(a);
@@ -164,6 +261,7 @@ __device__ __forceinline__ void load_chunk(const Args& a, float* xs,
   const int tid = threadIdx.x;
   const int cin = FULL ? a.ci / 4 : a.ci;
   const long long img = static_cast<long long>(bimg) * a.h;
+  const T* x = static_cast<const T*>(a.x);
   if (a.vec) {
     constexpr int NQ = C::KS / 4;  // channel quads a pixel
 #pragma unroll 1
@@ -175,9 +273,8 @@ __device__ __forceinline__ void load_chunk(const Args& a, float* xs,
       const int ch = FULL ? (v / (C::KC / 4)) * cin + c0 + kq : c0 + kq;
       const bool ok = gi >= 0 && gi < a.h && gj >= 0 && gj < a.w &&
                       c0 + kq < cin;
-      const float* src =
-          ok ? a.x + ((img + gi) * a.w + gj) * a.ci + ch : a.x;
-      cp_async16(xs + pix * C::LDC + 4 * v, src, ok);
+      const T* src = ok ? x + ((img + gi) * a.w + gj) * a.ci + ch : x;
+      Io<T>::stage4(xs + pix * C::LDC + 4 * v, src, ok);
     }
   } else {
 #pragma unroll 1
@@ -188,9 +285,8 @@ __device__ __forceinline__ void load_chunk(const Args& a, float* xs,
       const int ch = FULL ? (s / C::KC) * cin + c0 + k : c0 + k;
       const bool ok = gi >= 0 && gi < a.h && gj >= 0 && gj < a.w &&
                       c0 + k < cin;
-      const float* src =
-          ok ? a.x + ((img + gi) * a.w + gj) * a.ci + ch : a.x;
-      cp_async4(xs + pix * C::LDC + s, src, ok);
+      const T* src = ok ? x + ((img + gi) * a.w + gj) * a.ci + ch : x;
+      Io<T>::stage1(xs + pix * C::LDC + s, src, ok);
     }
   }
   // weights: ws[((k * 4 + q) * T + t) * BN + n]
@@ -251,9 +347,9 @@ __device__ __forceinline__ void thread_pos(int& g, int& col, int& r0) {
 
 // all of one staged chunk into acc: the thread's rows r0..r0+3 of column
 // col, channels 4g..4g+3 of the slice
-template <int BN, bool FULL>
+template <int BN, bool FULL, class T>
 __device__ __forceinline__ void compute_chunk(float (&acc)[4][kRM][kTN],
-                                              const float* xs,
+                                              const T* xs,
                                               const float* ws) {
   using C = Cfg<BN, FULL>;
   int g, col, r0;
@@ -267,8 +363,8 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kRM][kTN],
         float4 av[kRM + 2];
 #pragma unroll
         for (int m = 0; m < kRM + 2; ++m) {
-          av[m] = *reinterpret_cast<const float4*>(
-              xs + ((r0 + m) * C::HC + col + dxi) * C::LDC + 4 * k4);
+          av[m] = Io<T>::load4(xs + ((r0 + m) * C::HC + col + dxi) * C::LDC +
+                               4 * k4);
         }
 #pragma unroll
         for (int qx = 0; qx < 2; ++qx) {
@@ -304,7 +400,7 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kRM][kTN],
           float4 av[kRM + 1];
 #pragma unroll
           for (int m = 0; m < kRM + 1; ++m) {
-            av[m] = *reinterpret_cast<const float4*>(
+            av[m] = Io<T>::load4(
                 xs + ((r0 + m + 1 + dyb) * C::HC + col + 1 + dx) * C::LDC +
                 p * C::KC + 4 * k4);
           }
@@ -328,12 +424,12 @@ __device__ __forceinline__ void compute_chunk(float (&acc)[4][kRM][kTN],
   }
 }
 
-template <int BN, bool FULL>
+template <int BN, bool FULL, class T>
 __global__ void __launch_bounds__(kThreads, 2) tile_kernel(const Args a) {
   using C = Cfg<BN, FULL>;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                 // [2][XS]
-  float* ws = smem + 2 * C::XS;     // [2][WS]
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // [2][XS]
+  float* ws = reinterpret_cast<float*>(smem + 2 * C::XS * sizeof(T));
 
   const int nch = ((FULL ? a.ci / 4 : a.ci) + C::KC - 1) / C::KC;
 
@@ -345,25 +441,26 @@ __global__ void __launch_bounds__(kThreads, 2) tile_kernel(const Args a) {
 #pragma unroll
       for (int n = 0; n < kTN; ++n) acc[q][r][n] = 0.f;
 
-  load_chunk<BN, FULL>(a, xs, ws, 0);
+  load_chunk<BN, FULL, T>(a, xs, ws, 0);
   cp_async_commit();
   for (int c = 0; c < nch; ++c) {
     const int buf = c & 1;
     if (c + 1 < nch) {
-      load_chunk<BN, FULL>(a, xs + (buf ^ 1) * C::XS, ws + (buf ^ 1) * C::WS,
-                           (c + 1) * C::KC);
+      load_chunk<BN, FULL, T>(a, xs + (buf ^ 1) * C::XS,
+                              ws + (buf ^ 1) * C::WS, (c + 1) * C::KC);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    compute_chunk<BN, FULL>(acc, xs + buf * C::XS, ws + buf * C::WS);
+    compute_chunk<BN, FULL, T>(acc, xs + buf * C::XS, ws + buf * C::WS);
     __syncthreads();
   }
 
   // epilogue: bias in registers, the tile through shared memory, then
-  // coalesced rows out
+  // coalesced rows out. bfloat16: the sum rounded, then the rounded bias
+  // added and the result rounded (Io<float>::round is the identity)
   const Tile tl = tile_of<BN, FULL>(a);
   const int bimg = tl.b, i0 = tl.i0, j0 = tl.j0, n0 = tl.n0;
   const int tid = threadIdx.x;
@@ -373,22 +470,25 @@ __global__ void __launch_bounds__(kThreads, 2) tile_kernel(const Args a) {
 #pragma unroll
   for (int n = 0; n < kTN; ++n) {
     const int ch = n0 + kTN * g + n;
-    bv[n] = a.bias != nullptr && ch < a.co ? a.bias[ch] : 0.f;
+    bv[n] = a.bias != nullptr && ch < a.co ? Io<T>::round(a.bias[ch]) : 0.f;
   }
-  float* os = smem;
+  float* os = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int r = 0; r < kRM; ++r) {
       *reinterpret_cast<float4*>(
           os + ((r0 + r) * kTW + col) * C::LDO + q * BN + kTN * g) =
-          make_float4(acc[q][r][0] + bv[0], acc[q][r][1] + bv[1],
-                      acc[q][r][2] + bv[2], acc[q][r][3] + bv[3]);
+          make_float4(Io<T>::round(Io<T>::round(acc[q][r][0]) + bv[0]),
+                      Io<T>::round(Io<T>::round(acc[q][r][1]) + bv[1]),
+                      Io<T>::round(Io<T>::round(acc[q][r][2]) + bv[2]),
+                      Io<T>::round(Io<T>::round(acc[q][r][3]) + bv[3]));
     }
   __syncthreads();
   const int c4 = 4 * a.co;
   const long long img = static_cast<long long>(bimg) * a.h;
   const int nv = a.vec ? 4 : 1;
+  T* out = static_cast<T*>(a.out);
 #pragma unroll 1
   for (int e = tid; e < C::TH * kTW * 4 * BN / nv; e += kThreads) {
     const int n = (e % (BN / nv)) * nv;
@@ -396,23 +496,23 @@ __global__ void __launch_bounds__(kThreads, 2) tile_kernel(const Args a) {
     const int pos = e / (4 * BN / nv);
     const int i = i0 + pos / kTW, j = j0 + pos % kTW;
     if (i >= a.h || j >= a.w || n0 + n >= a.co) continue;
-    float* dst = a.out + ((img + i) * a.w + j) * c4 + q * a.co + n0 + n;
+    T* dst = out + ((img + i) * a.w + j) * c4 + q * a.co + n0 + n;
     const float* s = os + pos * C::LDO + q * BN + n;
     if (a.vec) {
-      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(s);
+      Io<T>::store4(dst, *reinterpret_cast<const float4*>(s));
     } else {
-      *dst = *s;
+      Io<T>::store1(dst, *s);
     }
   }
 }
 
-template <int BN, bool FULL>
+template <int BN, bool FULL, class T>
 cudaError_t launch_t(Args a, cudaStream_t stream) {
   using C = Cfg<BN, FULL>;
-  const size_t smem = C::SMEM_FLOATS * sizeof(float);
+  const size_t smem = C::template smem_bytes<T>();
   // above 48 KB of dynamic shared memory, on the current device
   cudaError_t err = cudaFuncSetAttribute(
-      tile_kernel<BN, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_kernel<BN, FULL, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   a.tiles_w = (a.w + kTW - 1) / kTW;
@@ -420,39 +520,44 @@ cudaError_t launch_t(Args a, cudaStream_t stream) {
   const long long gx = static_cast<long long>(a.tiles_w) * a.tiles_h * a.b;
   const long long gy = (a.co + BN - 1) / BN;
   if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidValue;
-  tile_kernel<BN, FULL>
+  tile_kernel<BN, FULL, T>
       <<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
          kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool FULL>
+template <bool FULL, class T>
 cudaError_t launch_bn(const Args& a, cudaStream_t stream) {
-  if (a.co <= 8) return launch_t<8, FULL>(a, stream);
-  if (a.co <= 16) return launch_t<16, FULL>(a, stream);
-  return launch_t<32, FULL>(a, stream);
+  if (a.co <= 8) return launch_t<8, FULL, T>(a, stream);
+  if (a.co <= 16) return launch_t<16, FULL, T>(a, stream);
+  return launch_t<32, FULL, T>(a, stream);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
 // full: 0 = 'up' (conv3x3 over nearest-up2 of x), 1 = 'full' (full-res
-// conv3x3 over the parity stack x, Ci = 4*cin). bias: (co) or null.
+// conv3x3 over the parity stack x, Ci = 4*cin). x and out float32
+// (bfloat16 = 0) or bfloat16 (1), the library's own type (cudaError
+// InvalidValue otherwise); w2 and bias ((co) or null) float32.
 // Returns a cudaError_t.
-extern "C" int tt_parity_conv(const float* x, const float* w2,
-                              const float* bias, float* out, int b, int h,
-                              int w, int ci, int co, int full, void* stream) {
-  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || (full && ci % 4)) {
+extern "C" int tt_parity_conv(const void* x, const float* w2,
+                              const float* bias, void* out, int b, int h,
+                              int w, int ci, int co, int full, int bfloat16,
+                              void* stream) {
+  if (b < 1 || h < 1 || w < 1 || ci < 1 || co < 1 || (full && ci % 4) ||
+      bfloat16 != kBfloat16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int cin = full ? ci / 4 : ci;
-  const int vec = cin % 4 == 0 && co % 4 == 0 && aligned16(x) &&
-                  aligned16(w2) && aligned16(out);
+  const int quad = bfloat16 ? 8 : 16;  // bytes of a channel quad
+  const int vec = cin % 4 == 0 && co % 4 == 0 && aligned(x, quad) &&
+                  aligned(w2, 16) && aligned(out, quad);
   const Args a{x, w2, bias, out, b, h, w, ci, co, vec, 0, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(full ? launch_bn<true>(a, s)
-                               : launch_bn<false>(a, s));
+  return static_cast<int>(full ? launch_bn<true, Elem>(a, s)
+                               : launch_bn<false, Elem>(a, s));
 }

@@ -11,7 +11,10 @@ the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
 follow the flax param tree (``NormAct_0``, ``Conv_0``, ``project_input``,
 ...; the fused block's flat ``conv1_kernel`` ...), so a parity block has the
 plain block's tree and ``convert.py`` carries either. Every block takes
-``(x, train)``; ``train=True`` normalizes with batch statistics.
+``(x, train)``; ``train=True`` normalizes with batch statistics. Every
+block computes in its input's dtype, the compute dtype that ``Generator``
+and ``Discriminator`` set, with the float32 weights cast at use
+(``models/layers.py``), as the reference's ``dtype`` attribute does.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..ops.resize import (
     downsample_bilinear_half_parity_to_parity,
     upsample_nearest_2x,
 )
+from ..utils.precision import wide
 from .layers import BatchNorm, Conv, Dense, NormAct, activation_fn
 
 
@@ -224,7 +228,7 @@ class _FoldedBNCore(BatchNorm):
         inv = torch.rsqrt(v + self.eps) * self.weight
         scale = inv.repeat(4)[None, :, None, None]
         shift = (self.bias - m * inv).repeat(4)[None, :, None, None]
-        return (xp.float() * scale + shift).to(xp.dtype)
+        return (xp.to(wide(xp.dtype)) * scale + shift).to(xp.dtype)
 
 
 class _ParityNormAct(nn.Module):
@@ -451,7 +455,9 @@ class FusedResidualGeneratorBlock(nn.Module):
     """``ResidualGeneratorBlock`` computed by the fused kernels K4/K5
     (``ops/gblock.py``), the same math. Training-mode BatchNorm with batch
     statistics, from ``_moments`` of x and K4's sums of conv1's output;
-    eval mode runs ``_gblock_reference`` on the running statistics.
+    eval mode runs ``_gblock_reference`` on the running statistics. It
+    computes in x's dtype, the compute dtype (the reference casts x to it,
+    ``blocks.py:218``, :227).
 
     Supported: upsample, not first, BatchNorm, leaky-relu ('relu'), 2-D.
     The parameters are the reference's flat ones: ``conv1_kernel``,
@@ -513,7 +519,7 @@ class FusedResidualGeneratorBlock(nn.Module):
                 "s2": self.bn2_scale, "o2": self.bn2_bias}
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        xh = x.permute(0, 2, 3, 1).float()
+        xh = x.permute(0, 2, 3, 1)
         if train:
             out, stats = fused_gblock(xh, self._params(),
                                       use_kernel=self.use_kernel)

@@ -3,6 +3,13 @@
 Counterpart of ``tartangan_tpu/models/layers.py:24-109``. Submodules keep
 the flax module names (``BatchNorm_0``, ``Conv_0``, ...) as attribute names,
 so ``convert.py`` maps a flax tree onto a ``state_dict`` by renaming paths.
+
+Parameters are float32; every layer computes in its input's dtype (the
+compute dtype, which ``Generator`` and ``Discriminator`` set), as flax's
+``dtype`` / ``param_dtype`` split does: ``Conv`` and ``Dense`` cast their
+weights at use, ``BatchNorm`` reduces and normalizes in float32 and casts
+back, and the activation runs on the cast value
+(``utils/precision.py``).
 """
 from __future__ import annotations
 
@@ -13,8 +20,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.precision import apply_in_dtype, rounded
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """leaky-relu with slope 0.2 rounded to ``x``'s dtype, as flax's
+    ``nn.leaky_relu(x, 0.2)`` multiplies in ``x``'s dtype."""
+    return F.leaky_relu(x, rounded(0.2, x.dtype))
+
+
 ACTIVATIONS: dict[str, Callable] = {
-    "relu": lambda x: F.leaky_relu(x, 0.2),
+    "relu": leaky_relu,
     "selu": F.selu,
     "elu": F.elu,
 }
@@ -108,13 +124,28 @@ class NormAct(nn.Module):
         return self.act(x)
 
 
+class _Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (flax's ``Conv`` with ``dtype``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_in_dtype(F.conv2d, x, self.weight, self.bias,
+                              padding=self.padding)
+
+
+class _Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype (flax's ``Dense`` with ``dtype``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_in_dtype(F.linear, x, self.weight, self.bias)
+
+
 def Conv(in_features: int, features: int, kernel: int = 3, *,
          use_bias: bool = True) -> nn.Conv2d:
     """Conv with SAME padding (odd kernels), NCHW."""
-    return nn.Conv2d(in_features, features, kernel, padding=kernel // 2,
-                     bias=use_bias)
+    return _Conv2d(in_features, features, kernel, padding=kernel // 2,
+                   bias=use_bias)
 
 
 def Dense(in_features: int, features: int, *,
           use_bias: bool = True) -> nn.Linear:
-    return nn.Linear(in_features, features, bias=use_bias)
+    return _Linear(in_features, features, bias=use_bias)

@@ -6,6 +6,11 @@ output, the D input and the seams between parity D blocks. The blocks
 lists are built exactly as there, so ``blocks[i]`` is flax's ``blocks_i``:
 with attention after block 3, the attention layer takes index 4 and every
 later block shifts by one.
+
+``dtype`` is the compute dtype (the reference's ``dtype`` attribute, with
+float32 parameters): each model casts its input to it, and every layer
+computes in its input's dtype. None computes in the input's own dtype (a
+float64 model on float64 inputs, as ``chip_smoke.py``'s witness runs).
 """
 from __future__ import annotations
 
@@ -47,9 +52,11 @@ class Generator(nn.Module):
     """
 
     def __init__(self, config: GANConfig, input_factory: Callable,
-                 block_factory: Callable, output_factory: Callable):
+                 block_factory: Callable, output_factory: Callable,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
+        self.dtype = dtype
 
         self.input_block = input_factory(config.latent_dims, config.blocks[0],
                                          config.base_size)
@@ -88,7 +95,10 @@ class Generator(nn.Module):
         return self.config.max_size
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
-        """z (B, latent) -> images (B, data_dims, H, W), NCHW."""
+        """z (B, latent) -> images (B, data_dims, H, W), NCHW, in the
+        compute dtype."""
+        if self.dtype is not None:
+            z = z.to(self.dtype)
         x = self.input_block(z, train)
         for block in self.blocks:
             x = block(x, train)
@@ -106,9 +116,11 @@ class Discriminator(nn.Module):
     """
 
     def __init__(self, config: GANConfig, input_factory: Callable,
-                 block_factory: Callable, output_factory: Callable):
+                 block_factory: Callable, output_factory: Callable,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         in_dims = config.blocks[-1]
         input_block = input_factory(config.data_dims, in_dims)
         blocks = []
@@ -137,7 +149,10 @@ class Discriminator(nn.Module):
         return self.config.max_size
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        """images (B, data_dims, H, W), NCHW -> logits (B, 1)."""
+        """images (B, data_dims, H, W), NCHW -> logits (B, 1), in the
+        compute dtype (``pluggan.py:258`` casts D's input)."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.input_block(x, train)
         for block in self.blocks:
             x = block(x, train)

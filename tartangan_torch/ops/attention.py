@@ -132,9 +132,12 @@ def _check_kernel(name, *ts):
                          f"got {q.shape[0]}")
 
 
-def _count(fn):
+def _count(fn, dtype):
+    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
+    them all, ``fn.launches_by_dtype`` each dtype's."""
     with _COUNT_LOCK:
         fn.launches += 1
+        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
 
 
 def _fwd(q, k, v, with_lse):
@@ -161,7 +164,7 @@ def _fwd(q, k, v, with_lse):
                  b, lq, lk, ck, cv, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
-    _count(attention)
+    _count(attention, q.dtype)
     return out, lse
 
 
@@ -196,7 +199,7 @@ def _bwd(q, k, v, do, o, lse):
                  b, lq, lk, ck, cv, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
-    _count(attention_bwd)
+    _count(attention_bwd, q.dtype)
     return dq, dk, dv
 
 
@@ -255,4 +258,6 @@ def attention_bwd(q, k, v, do):
 
 
 attention.launches = 0
+attention.launches_by_dtype = {}
 attention_bwd.launches = 0
+attention_bwd.launches_by_dtype = {}

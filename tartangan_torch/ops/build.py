@@ -2,7 +2,9 @@
 
 Each source under ``tartangan_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
-seconds) and loaded with ``ctypes``. Libraries go to ``build/torch_kernels/``
+seconds) and loaded with ``ctypes``. K3's and K4/K5's sources are built twice,
+once for each compute dtype (``-DTT_BFLOAT16`` for bfloat16), so the two
+halves of their template instances compile in parallel. Libraries go to ``build/torch_kernels/``
 at the repo root, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source is rebuilt at its next
 use. Nothing is built at import time.
@@ -22,20 +24,26 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"attention_fwd": "attention_fwd.cu",
            "attention_bwd": "attention_bwd.cu",
            "parity_conv": "parity_conv.cu",
-           "gblock": "gblock.cu"}
+           "parity_conv_bf16": "parity_conv.cu",
+           "gblock": "gblock.cu",
+           "gblock_bf16": "gblock.cu"}
+# the libraries of one source built with other preprocessor definitions
+DEFINES = {"parity_conv_bf16": ("-DTT_BFLOAT16",),
+           "gblock_bf16": ("-DTT_BFLOAT16",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points whose argument types ``load`` sets once: (argtypes,
 # restype); pointers and the stream as void*, so ctypes does not cut them
-SIGNATURES = {
-    "gblock": {
-        "tt_gblock_a": ([_P] * 10 + [_LL] + [_I] * 5 + [_P], _I),
-        "tt_gblock_b": ([_P] * 12 + [_LL] + [_I] * 5 + [_P], _I),
-        "tt_gblock_workspace": ([_I] * 6, _LL),
-    },
+_GBLOCK = {
+    "tt_gblock_a": ([_P] * 10 + [_LL] + [_I] * 6 + [_P], _I),
+    "tt_gblock_b": ([_P] * 12 + [_LL] + [_I] * 6 + [_P], _I),
+    "tt_gblock_workspace": ([_I] * 6, _LL),
 }
+_PARITY_CONV = {"tt_parity_conv": ([_P] * 4 + [_I] * 7 + [_P], _I)}
+SIGNATURES = {"gblock": _GBLOCK, "gblock_bf16": _GBLOCK,
+              "parity_conv": _PARITY_CONV, "parity_conv_bf16": _PARITY_CONV}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,10 +57,14 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + DEFINES.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -70,7 +82,7 @@ def build(names=None) -> dict[str, str]:
     procs = {}
     for name, out in stale.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -25,6 +25,17 @@ computes the same), ``b1``, ``b2``, ``s1``/``o1`` (Cin) and ``s2``/``o2``
 tensors and the raw statistics: the weight packing (merged taps, the TF32
 split) runs on the card, inside the same C call.
 
+x, y1p and out_p are float32 or bfloat16 (the compute dtype); the
+statistics are float32. In bfloat16 the kernels round where the TPU kernels
+do (``_kernel_a`` :196, ``_kernel_b`` :234): BatchNorm in float32, its
+result rounded to bfloat16 before the activation (``_act_from_f32``), the
+packed weights summed in float32 and rounded to bfloat16, products
+accumulated in float32, the biases added in float32 and the result rounded
+once as it is stored; K4's sums are taken of the stored (rounded) y1p, in
+float32. The plain versions round at the same points. ``_gblock_reference``
+(the backward's function) rounds where the JAX package's does, in the
+compute dtype.
+
 ``fused_gblock`` is a ``torch.autograd.Function``: the forward runs
 ``_moments`` -> K4 -> the statistics folded over the parity axis -> K5 ->
 ``depth_to_space``; the backward is the vector-Jacobian product of
@@ -40,6 +51,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import rounded, wide
 from . import build
 from .parity import (
     conv2d,
@@ -52,20 +64,36 @@ from .resize import upsample_nearest_2x
 
 BN_EPS = 1e-5
 PARAMS = ("w1", "b1", "w2", "b2", "wp", "bp", "s1", "o1", "s2", "o2")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the library of each dtype's instances (``ops/build.py``)
+_LIBRARY = {torch.float32: "gblock", torch.bfloat16: "gblock_bf16"}
 _COUNT_LOCK = threading.Lock()
 
 
 def _act(x):
-    """leaky-relu(0.2), what this codebase's 'relu' means."""
-    return F.leaky_relu(x, 0.2)
+    """leaky-relu(0.2), what this codebase's 'relu' means, with the slope
+    rounded to ``x``'s dtype (``models/layers.py::leaky_relu``)."""
+    return F.leaky_relu(x, rounded(0.2, x.dtype))
 
 
 def _moments(x):
     """Biased per-channel mean and variance over all but the last axis,
-    float32, as ``mean(x^2) - mean^2`` (the reference's ``_moments``)."""
-    x32 = x.float().reshape(-1, x.shape[-1])
+    float32 (float64 for float64), as ``mean(x^2) - mean^2`` (the
+    reference's ``_moments``)."""
+    x32 = x.to(wide(x.dtype)).reshape(-1, x.shape[-1])
     mean = x32.mean(0)
     return mean, x32.square().mean(0) - mean.square()
+
+
+def _bn_act(x, mean, mul, offset):
+    """act(bn(x)) as the kernels take it: the BatchNorm in float32 (float64
+    for float64), rounded to ``x``'s dtype before the activation."""
+    return _act(((x.to(wide(x.dtype)) - mean) * mul + offset).to(x.dtype))
+
+
+def _rounded_weight(w, dtype):
+    """Packed float32 weights rounded to ``dtype``, in float32 (float64)."""
+    return w.to(dtype).to(wide(dtype))
 
 
 def _nchw(t):
@@ -78,42 +106,55 @@ def _nhwc(t):
 
 def gblock_a_plain(x, m1, v1, s1, o1, w1, b1):
     """K4's function in plain torch ops: y1p = parity-up conv1(act(bn1(x)))
-    + tile(b1, 4), NHWC (B, H, W, 4*Cout), and (2, 4*Cout) float32 sums of
-    y1p and y1p^2 over (B, H, W)."""
+    + tile(b1, 4), NHWC (B, H, W, 4*Cout) in x's dtype, and (2, 4*Cout)
+    float32 sums of the stored y1p and y1p^2 over (B, H, W). The conv and
+    the bias in float32, rounded once."""
     cout = w1.shape[0]
-    h = _act((x.float() - m1) * (torch.rsqrt(v1 + BN_EPS) * s1) + o1)
-    y1p = _nhwc(conv_parity2(_nchw(h), pack_up_conv2(w1), cout,
-                             b1.repeat(4)))
-    y32 = y1p.reshape(-1, 4 * cout)
+    dt, wt = x.dtype, wide(x.dtype)
+    h = _bn_act(x, m1, torch.rsqrt(v1 + BN_EPS) * s1, o1)
+    y1p = _nhwc(conv_parity2(_nchw(h.to(wt)),
+                             _rounded_weight(pack_up_conv2(w1), dt), cout,
+                             b1.repeat(4))).to(dt)
+    y32 = y1p.to(wt).reshape(-1, 4 * cout)
     return y1p, torch.stack([y32.sum(0), y32.square().sum(0)])
 
 
 def _shortcut(x, wp, bp):
-    """x @ wp + bp, or x itself for the identity (``wp`` and ``bp`` None)."""
-    return x if wp is None else x @ wp + bp
+    """x @ wp + bp in x's dtype, or x itself for the identity (``wp`` and
+    ``bp`` None)."""
+    return x if wp is None else x @ wp.to(x.dtype) + bp.to(x.dtype)
 
 
 def gblock_b_plain(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
     """K5's function in plain torch ops: out_p = full-res parity
     conv2(act(bn2(y1p))) + tile(b2, 4) + tile(x @ wp + bp, 4), NHWC
-    (B, H, W, 4*Cout); ``wp = bp = None`` is the identity shortcut. The
-    statistics m2, v2 are per Cout channel."""
+    (B, H, W, 4*Cout) in y1p's dtype; ``wp = bp = None`` is the identity
+    shortcut. The statistics m2, v2 are per Cout channel. The convs, the
+    shortcut and the biases in float32, rounded once."""
     cout = w2.shape[0]
+    dt, wt = y1p.dtype, wide(y1p.dtype)
     inv = torch.rsqrt(v2 + BN_EPS) * s2
-    h = _act((y1p - m2.repeat(4)) * inv.repeat(4) + o2.repeat(4))
-    y = _nhwc(conv_parity2(_nchw(h), pack_full_conv2(w2), cout,
+    h = _bn_act(y1p, m2.repeat(4), inv.repeat(4), o2.repeat(4))
+    y = _nhwc(conv_parity2(_nchw(h.to(wt)),
+                           _rounded_weight(pack_full_conv2(w2), dt), cout,
                            b2.repeat(4)))
-    return y + _shortcut(x, wp, bp).repeat(1, 1, 1, 4)
+    sc = _shortcut(x.to(wt), None if wp is None else _rounded_weight(wp, dt),
+                   bp)
+    return (y + sc.repeat(1, 1, 1, 4)).to(dt)
 
 
-def _count(fn):
+def _count(fn, dtype):
+    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
+    them all, ``fn.launches_by_dtype`` each dtype's."""
     with _COUNT_LOCK:
         fn.launches += 1
+        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
 
 
-def _check(name, x, w, vectors, *ts):
+def _check(name, x, w, vectors, *ts, acts=()):
     """What both kernels take: NHWC x, a (Cout, Ci, 3, 3) weight, vectors
-    of the given lengths, float32 tensors on one device (cpu or cuda)."""
+    of the given lengths, on one device (cpu or cuda); x and ``acts`` float32
+    or bfloat16, of one dtype, the weights and vectors float32."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[2:] != (3, 3):
         raise ValueError(f"{name} takes NHWC x and a (Cout, Ci, 3, 3) weight,"
                          f" got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -121,10 +162,14 @@ def _check(name, x, w, vectors, *ts):
         if t.shape != (n,):
             raise ValueError(f"{name}: a vector is {tuple(t.shape)}, not "
                              f"({n},)")
-    ts = (x, w) + tuple(t for t, _ in vectors) + ts
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"{name} takes float32 tensors, got "
-                        f"{sorted({str(t.dtype) for t in ts})}")
+    params = (w,) + tuple(t for t, _ in vectors) + ts
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in acts) \
+            or any(t.dtype != torch.float32 for t in params):
+        raise TypeError(f"{name} takes float32 or bfloat16 activations of "
+                        "one dtype and float32 weights and vectors, got "
+                        f"{[str(t.dtype) for t in (x, *acts)]} and "
+                        f"{sorted({str(t.dtype) for t in params})}")
+    ts = (x, *acts) + params
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError(f"{name}: all tensors must be on one device")
@@ -179,18 +224,19 @@ def gblock_a(x, m1, v1, s1, o1, w1, b1):
     _check_contiguous("gblock_a", x, m1, v1, s1, o1, w1, b1)
     b, h, w, _ = x.shape
     y1p = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
-    stats = torch.empty((2, 4 * cout), dtype=x.dtype, device=x.device)
+    # the sums and the scratch are float32 in either dtype
+    stats = torch.empty((2, 4 * cout), dtype=torch.float32, device=x.device)
     nwork = workspace_floats(False, b, h, w, cin, cout)
-    work = torch.empty(nwork, dtype=x.dtype, device=x.device)
+    work = torch.empty(nwork, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = build.load("gblock").tt_gblock_a(
+        err = build.load(_LIBRARY[x.dtype]).tt_gblock_a(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), m1.data_ptr(),
             v1.data_ptr(), s1.data_ptr(), o1.data_ptr(), y1p.data_ptr(),
             stats.data_ptr(), work.data_ptr(), nwork, b, h, w, cin, cout,
-            _stream(x.device))
+            _DTYPES[x.dtype], _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_a kernel launch failed: cudaError {err}")
-    _count(gblock_a)
+    _count(gblock_a, x.dtype)
     return y1p, stats
 
 
@@ -203,7 +249,7 @@ def gblock_b(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
         raise ValueError("gblock_b: give both wp and bp, or neither")
     proj = () if wp is None else (wp,)
     _check("gblock_b", x, w2, [(t, cout) for t in (m2, v2, s2, o2, b2)]
-           + ([] if bp is None else [(bp, cout)]), y1p, *proj)
+           + ([] if bp is None else [(bp, cout)]), *proj, acts=(y1p,))
     if y1p.shape != x.shape[:3] + (4 * cout,) or w2.shape[1] != cout \
             or (wp is None and cin != cout) \
             or (wp is not None and wp.shape != (cin, cout)):
@@ -218,17 +264,18 @@ def gblock_b(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
     b, h, w, _ = x.shape
     out = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
     nwork = workspace_floats(True, b, h, w, cin, cout)
-    work = torch.empty(nwork, dtype=x.dtype, device=x.device)
+    work = torch.empty(nwork, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = build.load("gblock").tt_gblock_b(
+        err = build.load(_LIBRARY[x.dtype]).tt_gblock_b(
             y1p.data_ptr(), x.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             None if wp is None else wp.data_ptr(),
             None if bp is None else bp.data_ptr(), m2.data_ptr(),
             v2.data_ptr(), s2.data_ptr(), o2.data_ptr(), out.data_ptr(),
-            work.data_ptr(), nwork, b, h, w, cin, cout, _stream(x.device))
+            work.data_ptr(), nwork, b, h, w, cin, cout, _DTYPES[x.dtype],
+            _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_b kernel launch failed: cudaError {err}")
-    _count(gblock_b)
+    _count(gblock_b, x.dtype)
     return out
 
 
@@ -261,14 +308,21 @@ def _gblock_reference(x, params, stats=None):
     (the reference's ``_gblock_reference``): the backward differentiates
     it, and eval mode runs it with ``stats`` = the running (m1, v1, m2,
     v2). ``wp``/``bp`` None (or absent) is the identity shortcut. Returns
-    (out NHWC, (m1, v1, m2, v2))."""
+    (out NHWC, (m1, v1, m2, v2)). It computes in x's dtype and rounds
+    where the reference does (``gblock.py:358-397``): the BatchNorms in
+    float32, rounded before the activations; each conv rounded, then its
+    bias added in x's dtype (``ops/parity.py::conv2d``); the shortcut's
+    projection likewise."""
     p = params
+    dt, wt = x.dtype, wide(x.dtype)
     m1, v1 = _moments(x) if stats is None else stats[:2]
-    h = _act((x.float() - m1) * torch.rsqrt(v1 + BN_EPS) * p["s1"] + p["o1"])
+    h = _act(((x.to(wt) - m1) * torch.rsqrt(v1 + BN_EPS) * p["s1"]
+              + p["o1"]).to(dt))
     y1 = _nhwc(conv2d(upsample_nearest_2x(_nchw(h)), p["w1"], p["b1"],
                       padding=1))
     m2, v2 = _moments(y1) if stats is None else stats[2:]
-    h2 = _act((y1 - m2) * torch.rsqrt(v2 + BN_EPS) * p["s2"] + p["o2"])
+    h2 = _act(((y1.to(wt) - m2) * torch.rsqrt(v2 + BN_EPS) * p["s2"]
+               + p["o2"]).to(dt))
     y2 = _nhwc(conv2d(_nchw(h2), p["w2"], p["b2"], padding=1))
     x_up = _nhwc(upsample_nearest_2x(_nchw(x)))
     return y2 + _shortcut(x_up, p.get("wp"), p.get("bp")), (m1, v1, m2, v2)
@@ -319,4 +373,6 @@ def fused_gblock(x, params, use_kernel=True):
 
 
 gblock_a.launches = 0
+gblock_a.launches_by_dtype = {}
 gblock_b.launches = 0
+gblock_b.launches_by_dtype = {}

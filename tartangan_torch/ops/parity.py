@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import apply_in_dtype, wide
 from . import consts
 
 # The reference's module switches (``ops/parity.py:58,68``), read when a
@@ -203,14 +204,16 @@ def pack_point_conv(w):
 
 
 def conv2d(x, w, b=None, **kwargs):
-    """``F.conv2d``, of a contiguous NCHW copy of ``x`` on the CPU. The
-    parity layouts hand convolutions channels_last views; on the CPU,
-    oneDNN's backward of such a convolution was measured up to 1.4 % of the
-    max-abs off (input gradient, against float64) where the contiguous input
-    gives 1e-6. cuDNN takes the channels_last view as it is."""
+    """``F.conv2d`` in ``x``'s dtype (``utils/precision.py::apply_in_dtype``:
+    the packed float32 weights are cast after packing, as the JAX package's
+    ``_conv_same`` casts them), of a contiguous NCHW copy of ``x`` on the
+    CPU. The parity layouts hand convolutions channels_last views; on the
+    CPU, oneDNN's backward of such a convolution was measured up to 1.4 % of
+    the max-abs off (input gradient, against float64) where the contiguous
+    input gives 1e-6. cuDNN takes the channels_last view as it is."""
     if x.device.type == "cpu":
         x = x.contiguous()
-    return F.conv2d(x, w, b, **kwargs)
+    return apply_in_dtype(F.conv2d, x, w, b, **kwargs)
 
 
 def conv_parity2(x, w2, cout, b=None):
@@ -218,8 +221,9 @@ def conv_parity2(x, w2, cout, b=None):
     ``pack_full_conv2``) to NCHW ``x``: one conv with padding 1 gives a
     (B, 4*Cout, H+1, W+1) grid in which output parity q = 2*qy + qx lives at
     spatial offset (qy, qx); the slices realign it to the (B, 4*Cout, H, W)
-    parity stack."""
-    y = conv2d(x, w2.to(x.dtype), padding=1)
+    parity stack. The weights are cast to ``x``'s dtype and the bias is
+    added in it after the realignment, as in the JAX package (``:173``)."""
+    y = conv2d(x, w2, padding=1)
     h, w = x.shape[2], x.shape[3]
     parts = [y[:, q * cout:(q + 1) * cout, q // 2:h + q // 2, q % 2:w + q % 2]
              for q in range(4)]
@@ -250,11 +254,11 @@ def space_to_depth(x):
 
 def folded_moments(xp, c):
     """Per-original-channel biased mean and variance of a parity stack
-    (B, 4*C, H, W), float32: every full-resolution position appears once
-    among the parity blocks, so folding the parity axis into the reduction
-    gives the full-resolution tensor's statistics. ``mean(x^2) - mean^2``,
-    as the reference computes it."""
-    x32 = xp.float().permute(0, 2, 3, 1).reshape(-1, 4, c)
+    (B, 4*C, H, W), float32 (float64 for float64): every full-resolution
+    position appears once among the parity blocks, so folding the parity
+    axis into the reduction gives the full-resolution tensor's statistics.
+    ``mean(x^2) - mean^2``, as the reference computes it."""
+    x32 = xp.to(wide(xp.dtype)).permute(0, 2, 3, 1).reshape(-1, 4, c)
     mean = x32.mean(dim=(0, 1))
     var = x32.square().mean(dim=(0, 1)) - mean.square()
     return mean, var

@@ -19,14 +19,21 @@ parity blocks use it (the R1 penalty differentiates D twice).
 For CUDA tensors ``merged_tap_conv`` launches the kernel or raises; for CPU
 tensors it runs ``fused_parity_conv_plain`` (``conv_parity2`` with the 2x2
 packers). ``merged_tap_conv.launches`` counts kernel launches.
+
+x is float32 or bfloat16 (the compute dtype); the weight and the bias are
+the float32 parameters. In bfloat16 the kernel rounds where the TPU kernel
+does: the merged taps are summed in float32 and rounded to bfloat16 once
+(``parity_conv.py:190``), the products accumulate in float32, the sum is
+rounded to bfloat16 as it is stored (``:126``), and the bias, rounded to
+bfloat16, is added to it in bfloat16 (``:193``).
 """
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
 
+from ..utils.precision import wide
 from . import build
 from .parity import (
     conv2d,
@@ -39,6 +46,10 @@ from .parity import (
 
 _COUNT_LOCK = threading.Lock()
 _MODES = ("up", "full")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the library of each dtype's instances (``ops/build.py``)
+_LIBRARY = {torch.float32: "parity_conv",
+            torch.bfloat16: "parity_conv_bf16"}
 
 
 def _check(x, w_raw, cout, mode, bias):
@@ -53,9 +64,11 @@ def _check(x, w_raw, cout, mode, bias):
         raise ValueError(f"merged-tap conv '{mode}': x {tuple(x.shape)} does "
                          f"not fit the weight {tuple(w_raw.shape)}")
     ts = (x, w_raw) if bias is None else (x, w_raw, bias)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("the merged-tap parity conv takes float32, got "
-                        f"{sorted({str(t.dtype) for t in ts})}")
+    if x.dtype not in _DTYPES or any(t.dtype != torch.float32
+                                     for t in ts[1:]):
+        raise TypeError("the merged-tap parity conv takes float32 or "
+                        "bfloat16 x and a float32 weight and bias, got "
+                        f"{[str(t.dtype) for t in ts]}")
     if any(t.device != x.device for t in ts):
         raise ValueError("x, the weight and the bias must be on one device")
     if bias is not None and bias.shape != (cout,):
@@ -69,15 +82,24 @@ def _pack2(w_raw, mode):
 
 def fused_parity_conv_plain(x, w_raw, cout, mode, bias=None):
     """The kernel's function in plain torch ops: ``conv_parity2`` with the
-    2x2 packers, NHWC in and out, plus ``tile(bias, 4)`` if given."""
-    b4 = None if bias is None else bias.repeat(4)
-    y = conv_parity2(x.permute(0, 3, 1, 2), _pack2(w_raw, mode), cout, b4)
+    2x2 packers, NHWC in and out, plus ``tile(bias, 4)`` if given, rounded
+    where the kernel rounds: the packed weights to ``x``'s dtype, the conv
+    accumulated in float32 (float64 for float64) and rounded to ``x``'s
+    dtype, then the bias added in that dtype."""
+    dt, wt = x.dtype, wide(x.dtype)
+    w2 = _pack2(w_raw, mode).to(dt).to(wt)
+    y = conv_parity2(x.permute(0, 3, 1, 2).to(wt), w2, cout).to(dt)
+    if bias is not None:
+        y = y + bias.to(dt).repeat(4)[None, :, None, None]
     return y.permute(0, 2, 3, 1)
 
 
-def _count(fn):
+def _count(fn, dtype):
+    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
+    them all, ``fn.launches_by_dtype`` each dtype's."""
     with _COUNT_LOCK:
         fn.launches += 1
+        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
 
 
 def merged_tap_conv(x, w_raw, cout, mode, bias=None):
@@ -91,21 +113,22 @@ def merged_tap_conv(x, w_raw, cout, mode, bias=None):
         raise ValueError(f"merged_tap_conv runs on cuda or cpu, not {x.device}")
     b, h, w, ci = x.shape
     x = x.contiguous()
-    # (4*cout, Ci, 2, 2) OIHW -> (2, 2, Ci, 4*cout), the kernel's layout
-    w2 = _pack2(w_raw.detach(), mode).permute(2, 3, 1, 0).contiguous()
+    # (4*cout, Ci, 2, 2) OIHW -> (2, 2, Ci, 4*cout), the kernel's layout,
+    # float32 holding the taps rounded to x's dtype
+    w2 = _pack2(w_raw.detach(), mode).to(x.dtype).float()
+    w2 = w2.permute(2, 3, 1, 0).contiguous()
     bias = None if bias is None else bias.detach().contiguous()
     out = torch.empty((b, h, w, 4 * cout), dtype=x.dtype, device=x.device)
-    fn = build.load("parity_conv").tt_parity_conv
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.load(_LIBRARY[x.dtype]).tt_parity_conv
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w2.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 b, h, w, ci, cout, int(mode == "full"), stream)
+                 b, h, w, ci, cout, int(mode == "full"), _DTYPES[x.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"parity_conv kernel launch failed: cudaError {err}")
-    _count(merged_tap_conv)
+    _count(merged_tap_conv, x.dtype)
     return out
 
 
@@ -140,3 +163,4 @@ def fused_parity_conv(x, w_raw, b, cout, mode):
 
 
 merged_tap_conv.launches = 0
+merged_tap_conv.launches_by_dtype = {}

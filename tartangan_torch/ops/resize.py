@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import REDUCED
 from . import consts
 
 
@@ -38,10 +39,17 @@ def downsample_bilinear_half(x: torch.Tensor,
     """Bilinear 0.5x of NCHW (D residual shortcut): ``F.interpolate`` to
     (H // 2, W // 2), which samples input coordinate i * (n_in - 1) /
     (n_out - 1) with align_corners, as the JAX package's
-    ``_linear_interp_matrix`` does."""
+    ``_linear_interp_matrix`` does. In a reduced dtype it is the JAX
+    package's two matmuls (``resize_bilinear``), whose interpolation
+    weights and intermediate are rounded to that dtype."""
     _, _, h, w = x.shape
-    return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
-                         align_corners=align_corners)
+    if x.dtype not in REDUCED:
+        return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
+                             align_corners=align_corners)
+    ah = _interp(h, h // 2, align_corners, x)
+    aw = _interp(w, w // 2, align_corners, x)
+    y = torch.einsum("oh,bchw->bcow", ah, x)
+    return torch.einsum("ow,bchw->bcho", aw, y)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,10 +7,14 @@ function of an immutable state; here it runs eagerly and updates the
 state's modules and optimizers in place. The attention of G and D runs
 through the CUDA kernels K1 (forward) and K2 (backward) on the card;
 ``--parity-blocks on`` builds the thin tower blocks in the parity domain,
-whose G convs run through K3 under ``ops.parity.FUSED_G``.
+whose G convs run through K3 under ``ops.parity.FUSED_G``. ``--dtype bf16``
+computes in bfloat16 (the batch is normalized in it, G and D cast their
+input to it) with float32 parameters, Adam state and EMA target; the losses
+and R1's square run in float32 on the bfloat16 logits and input gradient,
+as the reference's (``train/cnn.py:87-95``).
 
 Usage: python -m tartangan_torch.train.cnn DATA.npz --config 512thin
-       --batch-size 64 [--parity-blocks on] [--device cuda|cpu]
+       --batch-size 64 [--parity-blocks on] [--dtype bf16] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -134,6 +138,7 @@ class CNNTrainer(Trainer):
                 args.norm, args.activation,
                 parity=F.resolve_parity(args.parity_blocks)),
             output_factory=F.g_output_factory(args.norm, args.activation),
+            dtype=self.dtype,
         )
 
     def build_discriminator(self):
@@ -145,6 +150,7 @@ class CNNTrainer(Trainer):
                 args.norm, args.activation,
                 parity=F.resolve_parity(args.parity_blocks)),
             output_factory=F.d_output_factory(args.norm, args.activation),
+            dtype=self.dtype,
         )
 
     def make_train_step(self):

@@ -12,7 +12,9 @@ from torch import nn
 
 def normalize_batch(batch_u8: torch.Tensor,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 NHWC -> NCHW ``dtype`` in [-1, 1], on the batch's device."""
+    """uint8 NHWC -> NCHW ``dtype`` in [-1, 1], on the batch's device,
+    divided by 127.5 in ``dtype`` as the reference does (``common.py:11-14``;
+    torch rounds each op's result to bfloat16, as XLA does)."""
     x = batch_u8.permute(0, 3, 1, 2).to(dtype) / 127.5 - 1.0
     return x.contiguous()
 

@@ -31,7 +31,7 @@ from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
-from ..utils.precision import full_float32
+from ..utils.precision import full_float32, resolve_dtype
 from .components.container import ComponentContainer
 from .progress import ProgressLine
 
@@ -54,7 +54,6 @@ _UNPORTED = {
     "checkpoint_format": (lambda a: getattr(a, "checkpoint_format",
                                             "msgpack") != "msgpack",
                           "orbax checkpoints"),
-    "dtype": (lambda a: a.dtype == "bf16", "bfloat16 training"),
     "activation": (lambda a: a.activation == "selu",
                    "the SELU re-initialization"),
 }
@@ -91,9 +90,9 @@ class Trainer:
             raise RuntimeError("--device cuda but no CUDA device is "
                                "available; pass --device cpu to train on "
                                "the CPU")
-        # --dtype auto is float32, the JAX package's rule off a TPU; bf16
-        # raised above
-        self.dtype = torch.float32
+        # the compute dtype; parameters, BatchNorm statistics, Adam's state
+        # and the EMA target stay float32 (flax's dtype / param_dtype)
+        self.dtype = resolve_dtype(args.dtype)
         full_float32()
 
         self.run_id = args.run_id if args.run_id is not None \
@@ -360,8 +359,8 @@ class Trainer:
                             "yet)")
         p.add_argument("--dtype", default="auto",
                        choices=["auto", "bf16", "f32"],
-                       help="Compute dtype; auto = f32 (bf16 is not ported "
-                            "yet)")
+                       help="Compute dtype (params always f32); auto = f32 "
+                            "(the JAX package's rule off a TPU)")
         p.add_argument("--num-devices", type=type_or_none(int), default=None,
                        help="Devices in the data mesh (only 1 is ported)")
         p.add_argument("--tp", type=int, default=1,

@@ -495,6 +495,82 @@ def test_gblock_workspace_matches_the_kernels(cuda):
                 G.workspace_floats(full, b, h, w, cin, cout)
 
 
+# bfloat16 (``--dtype bf16``) against the plain versions, which round at the
+# same points: where the float32 sums before a rounding differ in their last
+# bits (another summation order), a value lands one bfloat16 ulp away; one
+# ulp in the max-abs's binade is at most 2^-7 of the max-abs
+TOL_PARITY_BF16 = dict(rtol=0, atol=2 ** -7)
+
+
+def _scaled_close_bf16(out, ref):
+    assert out.dtype == ref.dtype == torch.bfloat16
+    scale = ref.float().abs().max()
+    torch.testing.assert_close(out.float() / scale, ref.float() / scale,
+                               **TOL_PARITY_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["up", "full"])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 128, 64),   # '512thin' G block 3
+    (2, 64, 64, 64, 32),    # '512thin' G block 5
+    (2, 128, 128, 32, 16),  # '512thin' G block 6
+    (2, 256, 256, 16, 8),   # '512thin' G block 7
+    (2, 37, 19, 5, 7),      # ragged: one-channel copies, cout % 4
+    (1, 9, 11, 12, 100),    # co past one channel slice
+    (1, 20, 33, 6, 12),     # 'full' cin 6: a partial chunk of 2
+])
+def test_parity_conv_kernel_bf16_matches_plain(cuda, mode, shape):
+    """K3 in bfloat16: bfloat16 in and out, float32 weights and bias."""
+    from tartangan_torch.ops.parity_conv import (
+        fused_parity_conv_plain,
+        merged_tap_conv,
+    )
+    b, h, w, cin, cout = shape
+    x, wt, bias = _k3_case(cuda, mode, *shape)
+    x = x.bfloat16()
+    before = merged_tap_conv.launches
+    out = merged_tap_conv(x, wt, cout, mode, bias=bias)
+    torch.cuda.synchronize()
+    assert merged_tap_conv.launches == before + 1
+    assert out.shape == (b, h, w, 4 * cout)
+    _scaled_close_bf16(out, fused_parity_conv_plain(x, wt, cout, mode, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GBLOCK_CASES)
+def test_gblock_kernels_bf16_match_plain(cuda, case):
+    """K4 and K5 in bfloat16 against their plain versions (K5 fed the plain
+    y1p and statistics); K4's sums are float32 and are the sums of the
+    y1p it stored, after rounding (to float32 summation error)."""
+    from tartangan_torch.ops import gblock as G
+    b, h, w, cin, cout, _ = case
+    x, p, _ = _gblock_case(cuda, *case)
+    x = x.bfloat16()
+    m1, v1 = G._moments(x)
+    before = (G.gblock_a.launches, G.gblock_b.launches)
+    y1p, sums = G.gblock_a(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
+    y1r, sumr = G.gblock_a_plain(x, m1, v1, p["s1"], p["o1"], p["w1"],
+                                 p["b1"])
+    assert y1p.dtype == torch.bfloat16 and sums.dtype == torch.float32
+    _scaled_close_bf16(y1p, y1r)
+    y = y1p.double().reshape(-1, 4 * cout)
+    ref = torch.stack([y.sum(0), y.square().sum(0)])
+    bound = 1e-5 * torch.stack([y.abs().sum(0), y.square().sum(0)]) + 1e-30
+    assert ((sums.double() - ref).abs() <= bound).all()
+    n = 4 * b * h * w
+    m2 = sumr.reshape(2, 4, cout).sum(1)[0] / n
+    v2 = sumr.reshape(2, 4, cout).sum(1)[1] / n - m2.square()
+    args = (y1r, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"], p["wp"],
+            p["bp"])
+    out = G.gblock_b(*args)
+    assert out.dtype == torch.bfloat16
+    _scaled_close_bf16(out, G.gblock_b_plain(*args))
+    torch.cuda.synchronize()
+    assert (G.gblock_a.launches, G.gblock_b.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
 @pytest.mark.cuda
 def test_parity_kernels_reject_other_dtypes(cuda):
     from tartangan_torch.ops.parity_conv import merged_tap_conv

@@ -295,7 +295,7 @@ def test_trainer_losses_finite_and_stats_move(tiny_archive, tmp_path):
     ["--device-data"], ["--steps-per-call", "2"], ["--num-devices", "2"],
     ["--tp", "2"], ["--remat"], ["--fid"],
     ["--metrics-collector", "tensorboard"], ["--profile-dir", "x"],
-    ["--timing"], ["--checkpoint-format", "orbax"], ["--dtype", "bf16"],
+    ["--timing"], ["--checkpoint-format", "orbax"],
     ["--activation", "selu"]])
 def test_unported_flags_raise(tiny_archive, tmp_path, flag):
     with pytest.raises(NotImplementedError):
