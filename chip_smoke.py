@@ -113,6 +113,23 @@ printing a result:
    attention) at B 128 in float32 and in bfloat16: 3 steps each through
    the trainer's entry points, finite losses, then the two steps timed in
    turns with images/s, peak memory and a profile each.
+10. eval (no TPU kernel on this path: cuDNN and cuBLAS in IEEE float32):
+   the port's Inception v3 on the card against the JAX package's output on
+   the crc32-keyed fixture weights (``tests/fixtures/
+   inception_port_expected.npz``, TOL_INCEPTION_FIXTURE), and on the seed-0
+   template with the calibrated statistics against the port's CPU forward
+   at B 8 (TOL_INCEPTION_CPU); ``python -m tartangan_torch.eval.moments``
+   over 2176 synthetic 128x128 tartans (full-rank covariance); Inception's
+   forward at B 128 timed (images/s by device time and host clock, the
+   share of its float32 FMA bound from the multiply-adds of its conv
+   shapes); then '128' at B 128 for 3 steps with ``--fid --fid-freq 2
+   --n-inception-imgs 4096 --metrics-collector tensorboard`` in float32 and
+   in bfloat16: the FID finite and >= 0 and read back from the event file;
+   the FID closure's wall; 4096 images G -> Inception -> moment sums under
+   ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up batch until
+   the one readback; the Newton-Schulz FID on the card against the float64
+   ``eigh`` form on the same mu and sigma (TOL_FID_NS); the closure's
+   parts (G sampling, Inception, moments, Newton-Schulz, IS) timed apart.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
@@ -2720,6 +2737,330 @@ def phase_128(archive):
     time_steps("'128'", trainers, batch, z_d, z_g)
 
 
+EVAL_DIR = ROOT / "build" / "chip_smoke_eval"
+FIXTURES = ROOT / "tests" / "fixtures"
+CALIBRATED = FIXTURES / "inception_calibrated.npz"
+# the JAX Inception's pool and logits on the crc32-keyed fixture weights,
+# and the JAX test's tolerance (tests/test_inception_weights.py:120-131)
+TOL_INCEPTION_FIXTURE = dict(rtol=2e-4, atol=2e-4)
+# the card's forward against the port's CPU forward, of the max-abs: both
+# IEEE float32, summed in other orders through 94 convolutions
+TOL_INCEPTION_CPU = 1e-4
+# Newton-Schulz in float32 on the card against the float64 eigh form, on
+# the same mu and sigma (the JAX test's bound,
+# tests/test_inception_fid.py:29-38)
+TOL_FID_NS = 1e-2
+# images: more than 2048, so the dataset's 2048-dim covariance has full
+# rank; 17 batches of 128
+EVAL_DATA_IMAGES = 2176
+EVAL_IMAGES = 4096
+EVAL_BATCH = 128
+
+
+def inception_fixture_weights(model):
+    """The JAX tests' torchvision-schema fixture weights
+    (``tests/test_inception_weights.py::synthetic_state_dict``): each
+    tensor drawn from a generator seeded by the crc32 of its torchvision
+    key, in the torch shape; BatchNorm weight and running_var uniform in
+    [0.5, 1.5], everything else normal(0, 0.05). Built over the port's
+    ``torch_key_map``."""
+    from tartangan_torch.models.inception import torch_key_map
+    state = model.state_dict()
+    out = {}
+    for flax_key, torch_key in torch_key_map(model).items():
+        shape = tuple(state[torch_key].shape)
+        rng = np.random.default_rng(zlib.crc32(torch_key.encode()))
+        if flax_key.split(".")[-1] in ("scale", "var"):
+            val = rng.uniform(0.5, 1.5, shape)
+        else:
+            val = rng.normal(0.0, 0.05, shape)
+        out[torch_key] = val.astype(np.float32)
+    return out
+
+
+def inception_macs(model, dev):
+    """Multiply-adds of one image through the network at 299x299, counted
+    from the shapes of its convolutions' outputs and the fc layer."""
+    total = [0]
+
+    def hook(mod, inputs, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            kh, kw = mod.kernel_size
+            total[0] += out[0].numel() * mod.in_channels * kh * kw
+        else:
+            total[0] += mod.in_features * mod.out_features
+    handles = [mod.register_forward_hook(hook) for mod in model.modules()
+               if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, 3, 299, 299), device=dev))
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def hold_inception(dev):
+    """Holds 1 and 2: the port's Inception on the card against the JAX
+    package's committed output on the fixture weights, and on the seed-0
+    template with the calibrated statistics against the port's CPU
+    forward at B 8."""
+    from tartangan_torch.models import inception as I
+    model = I.init_inception()
+    I.port_torch_state_dict(model, inception_fixture_weights(model))
+    x = np.random.default_rng(42).uniform(-1.0, 1.0, (1, 299, 299, 3))
+    x = torch.from_numpy(x.astype(np.float32).transpose(0, 3, 1, 2))
+    with torch.no_grad():
+        pool, logits = model.to(dev)(x.to(dev))
+    expected = np.load(FIXTURES / "inception_port_expected.npz")
+    errs = {}
+    for name, out in (("pool", pool), ("logits", logits)):
+        out = out.cpu().numpy()
+        np.testing.assert_allclose(out, expected[name],
+                                   **TOL_INCEPTION_FIXTURE)
+        errs[name] = float(np.abs(out - expected[name]).max())
+    log(f"eval: Inception v3 on the card, fixture weights, against the JAX "
+        f"package's output (inception_port_expected.npz): max abs error "
+        f"{errs} (tolerance {TOL_INCEPTION_FIXTURE})")
+
+    model = I.load_weights_npz(I.init_inception(0), CALIBRATED)
+    x = torch.from_numpy(np.random.default_rng(43).uniform(
+        -2.0, 2.0, (8, 3, 299, 299)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        out = model.to(dev)(x.to(dev))
+    errs = {}
+    for name, a, b in zip(("pool", "logits"), out, ref):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        errs[name] = err
+        if not err <= TOL_INCEPTION_CPU:
+            raise AssertionError(f"Inception card vs CPU {name}: {err}")
+    log(f"eval: Inception v3 (seed-0 template + calibrated statistics) B 8, "
+        f"card against the port's CPU forward: max abs error over max-abs "
+        f"{errs} (tolerance {TOL_INCEPTION_CPU})")
+
+
+def fid_trainer(archive, moments_path, dtype, dev):
+    """Config '128' at B 128 for 3 steps through the trainer's entry
+    points, with ``--fid --fid-freq 2 --n-inception-imgs 4096`` and the
+    TensorBoard collector; the FID fires once, at step 2."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    from tartangan_torch.utils import tb_events
+    out_root = EVAL_DIR / "out"
+    shutil.rmtree(out_root / dtype, ignore_errors=True)
+    tb = EVAL_DIR / "tb" / dtype
+    shutil.rmtree(tb, ignore_errors=True)
+    t = CNNTrainer.create_from_cli([
+        str(archive), "--config", "128", "--batch-size", str(EVAL_BATCH),
+        "--epochs", "3", "--dtype", dtype, "--device", str(dev),
+        "--run-id", dtype, "--output", str(out_root), "--gen-freq", "1000",
+        "--quiet-logs", "--fid", "--fid-freq", "2",
+        "--n-inception-imgs", str(EVAL_IMAGES),
+        "--inception-moments", str(moments_path),
+        "--inception-weights", str(CALIBRATED),
+        "--metrics-collector", "tensorboard", "--metrics-path", str(tb)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fids = [float(v) for v in t.logs["fid"]]
+    scores = [(float(a), float(b)) for a, b in zip(
+        t.logs["inception_score_mean"], t.logs["inception_score_std"])]
+    assert t.steps == 3 and len(fids) == 1, (t.steps, fids)
+    assert np.isfinite(fids[0]) and fids[0] >= 0, fids
+    (name,) = [p for p in (tb / dtype).iterdir()]
+    events = [tb_events.decode_scalar_event(r)
+              for r in tb_events.read_records(name)]
+    last = events[-1][2]
+    assert events[-1][1] == 2 and last["CNNTrainer/fid"] == np.float32(
+        fids[0]), (events[-1][:2], last)
+    log(f"eval: '128' B{EVAL_BATCH} {dtype} with --fid: 3 steps in "
+        f"{wall:.1f} s (host clock; the FID at step 2 over {EVAL_IMAGES} "
+        f"images included); fid {fids[0]!r}, IS (mean, std) {scores}; the "
+        f"event file {name.name} reads back {len(events)} records, the "
+        f"last at step 2 with CNNTrainer/fid = {last['CNNTrainer/fid']!r}")
+    return t
+
+
+def time_fid(trainer, net, data_mu, data_sigma, label):
+    """Holds 3 and 4, and the times of the FID closure's parts over
+    EVAL_IMAGES images of ``trainer``'s G: G sampling -> Inception ->
+    moment sums run under ``torch.cuda.set_sync_debug_mode("error")``
+    after a warm-up batch, until the one readback; the on-card
+    Newton-Schulz FID against the float64 form on the same mu and sigma."""
+    from tartangan_torch.eval.fid import (
+        frechet_distance,
+        inception_score,
+        numpy_frechet_distance,
+    )
+    from tartangan_torch.eval.inception import (
+        finish_moments,
+        stream_activations,
+    )
+    stream_activations(trainer.generate, net, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums = stream_activations(trainer.generate, net, EVAL_IMAGES)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    probs, mu, sigma = finish_moments(*sums)
+    t_stream = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert probs.shape == (EVAL_IMAGES, 1000) and np.isfinite(sigma).all()
+
+    def dev(a):
+        return torch.as_tensor(a, device=trainer.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ns = float(frechet_distance(dev(mu), dev(sigma), dev(data_mu),
+                                dev(data_sigma)))
+    t_ns = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    is_mean, is_std = inception_score(probs, 5)
+    t_is = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = numpy_frechet_distance(mu, sigma, data_mu, data_sigma)
+    t_np = time.perf_counter() - t0
+    fallback = not np.isfinite(ns) or ns < 0
+    rel = abs(ns - exact) / abs(exact)
+    log(f"eval {label}: {EVAL_IMAGES} images G -> Inception -> moment sums "
+        f"ran under set_sync_debug_mode('error') after a warm-up batch, "
+        f"{t_stream:.3f} s to the readback (host clock), peak device memory "
+        f"{peak:.2f} GiB; FID Newton-Schulz float32 on the card {ns!r} "
+        f"({t_ns * 1e3:.1f} ms), float64 eigh on the host {exact!r} "
+        f"({t_np * 1e3:.0f} ms), relative difference {rel:.3e} (tolerance "
+        f"{TOL_FID_NS}); robust_frechet falls back: {fallback}; IS "
+        f"{is_mean:.5f} +/- {is_std:.5f} ({t_is * 1e3:.1f} ms)")
+    if fallback or not rel <= TOL_FID_NS:
+        raise AssertionError(f"FID on the card {ns} vs float64 {exact}")
+
+    # the parts apart, each synchronized, by CUDA events
+    n_batches = EVAL_IMAGES // EVAL_BATCH
+    parts = {}
+
+    def timed(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        parts[name] = start.elapsed_time(end)
+        return out
+    images = timed("G sampling", lambda: [trainer.generate()
+                                          for _ in range(n_batches)])
+    outs = timed("Inception", lambda: [net(x) for x in images])
+    sum_x = torch.zeros(2048, device=trainer.device)
+    sum_xxt = torch.zeros(2048, 2048, device=trainer.device)
+
+    def moments():
+        for pool, _ in outs:
+            sum_x.add_(pool.sum(0))
+            sum_xxt.addmm_(pool.T, pool)
+    timed("moments", moments)
+    timed("Newton-Schulz", lambda: frechet_distance(
+        dev(mu), dev(sigma), dev(data_mu), dev(data_sigma)))
+    parts["IS (host)"] = t_is * 1e3
+    log(f"eval {label}: the FID closure's parts at {EVAL_IMAGES} images "
+        f"(CUDA events, each part alone): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in parts.items()))
+    del images, outs
+    return parts
+
+
+def time_inception(net, dev, smi):
+    """Inception's forward at B 128 (normalize, resize 128 -> 299, the
+    network, softmax): images/s by device time (CUDA events) and by the
+    host clock, against the float32 FMA bound of its multiply-adds."""
+    x = torch.rand((EVAL_BATCH, 3, 128, 128), device=dev) * 2 - 1
+    ms = cuda_ms(lambda: net(x), iters=5, reps=5)
+
+    def synced():
+        net(x)
+        torch.cuda.synchronize()
+    wall = host_ms(synced, reps=10)
+    macs = inception_macs(net.model, dev)
+    bound, by = _conv_bound_ms(macs * EVAL_BATCH, x.numel() * 4)
+    log(f"eval: Inception v3 forward B{EVAL_BATCH} float32 from 128x128: "
+        f"{ms:.3f} ms by device time ({1e3 * EVAL_BATCH / ms:.1f} images/s), "
+        f"{wall:.3f} ms by host clock ({1e3 * EVAL_BATCH / wall:.1f} "
+        f"images/s); {macs / 1e9:.4f} G multiply-adds an image, float32 FMA "
+        f"bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f} % of it; "
+        f"{smi}")
+    profile_call(f"Inception forward B{EVAL_BATCH}", synced)
+    return ms, wall
+
+
+def phase_eval(dev, archive, smi):
+    """Phase 10: holds 1-4 and the times of evaluation while training."""
+    from tartangan_torch.data.image_bytes import ImageBytesDataset
+    from tartangan_torch.data.synthetic import make_archive
+    from tartangan_torch.eval.inception import InceptionWrapper
+    from tartangan_torch.eval.moments import calculate_inception_moments
+    hold_inception(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    EVAL_DIR.mkdir(parents=True, exist_ok=True)
+    data = EVAL_DIR / "tartans128.npy"
+    np.save(data, make_archive(EVAL_DATA_IMAGES, 128, seed=1))
+    moments_path = EVAL_DIR / "moments128.npz"
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "tartangan_torch.eval.moments", str(data),
+         str(moments_path), "--batch-size", str(EVAL_BATCH),
+         "--inception-weights", str(CALIBRATED), "--device", str(dev)],
+        cwd=ROOT, check=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    with np.load(moments_path) as m:
+        data_mu, data_sigma = m["mu"], m["sigma"]
+    assert data_mu.shape == (2048,) and np.isfinite(data_sigma).all()
+    log(f"eval: python -m tartangan_torch.eval.moments over "
+        f"{EVAL_DATA_IMAGES} 128x128 images, B {EVAL_BATCH}: {cli_s:.1f} s "
+        f"wall (host clock, process start included)")
+
+    net = InceptionWrapper(weights=str(CALIBRATED), device=dev)
+    # the same moments in this process, warm: the CLI's wall less its
+    # start-up, and its output against the library's
+    ds = ImageBytesDataset.from_path(data)
+    calculate_inception_moments(ds, net, EVAL_BATCH, quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, sigma = calculate_inception_moments(ds, net, EVAL_BATCH, quiet=True)
+    warm_s = time.perf_counter() - t0
+    err = max(float(np.abs(mu - data_mu).max() / np.abs(data_mu).max()),
+              float(np.abs(sigma - data_sigma).max()
+                    / np.abs(data_sigma).max()))
+    log(f"eval: the same moments in this process, warm: {warm_s:.3f} s "
+        f"(host clock); against the CLI's, max abs error over max-abs "
+        f"{err:.3e} (tolerance {TOL_INCEPTION_CPU})")
+    if not err <= TOL_INCEPTION_CPU:
+        raise AssertionError(f"moments CLI vs in-process: {err}")
+    del ds
+    time_inception(net, dev, smi)
+    for dtype in ("f32", "bf16"):
+        t = fid_trainer(archive, moments_path, dtype, dev)
+        fid = next(c for c in t.components.components
+                   if type(c).__name__ == "FIDComponent")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        closure = fid.get_inception_metrics(t.generate, EVAL_IMAGES, 5)
+        wall = time.perf_counter() - t0
+        log(f"eval {dtype}: the FID closure at {EVAL_IMAGES} images, "
+            f"{wall * 1e3:.1f} ms wall (host clock; G sampling, Inception, "
+            f"moments, readback, Newton-Schulz, IS); (IS mean, IS std, FID) "
+            f"{closure}")
+        time_fid(t, net, data_mu, data_sigma, dtype)
+        del t, fid
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -2808,6 +3149,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_128(archive)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_eval(dev, archive, smi)
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]

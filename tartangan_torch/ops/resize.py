@@ -2,8 +2,9 @@
 
 Counterparts of ``tartangan_tpu/ops/resize.py`` (NHWC there): the nearest
 2x upsample of the G blocks, the 2x2 max pool of the self-attention K/V,
-the D blocks' 2x2 average pool and bilinear half-size shortcut, and that
-shortcut taken from a parity stack (``ops/parity.py`` layout).
+the D blocks' 2x2 average pool and bilinear half-size shortcut, that
+shortcut taken from a parity stack (``ops/parity.py`` layout), and the
+Inception wrapper's bilinear resize to 299 and its stem's 3x3 max pool.
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """VALID ``window``x``window`` max pool with ``stride`` on NCHW (the
+    Inception stem's 3x3/2; the JAX package's ``max_pool``)."""
+    return F.max_pool2d(x, window, stride)
+
+
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 average pool on NCHW (D block main path)."""
     return F.avg_pool2d(x, 2)
@@ -46,8 +53,19 @@ def downsample_bilinear_half(x: torch.Tensor,
     if x.dtype not in REDUCED:
         return F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
                              align_corners=align_corners)
-    ah = _interp(h, h // 2, align_corners, x)
-    aw = _interp(w, w // 2, align_corners, x)
+    return resize_bilinear(x, h // 2, w // 2, align_corners)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to (out_h, out_w) as the JAX package's
+    two interpolation-matrix products (``ops/resize.py:51-61``), the
+    matrices in ``x``'s dtype made once on its device."""
+    _, _, h, w = x.shape
+    if h == out_h and w == out_w:
+        return x
+    ah = _interp(h, out_h, align_corners, x)
+    aw = _interp(w, out_w, align_corners, x)
     y = torch.einsum("oh,bchw->bcow", ah, x)
     return torch.einsum("ow,bchw->bcho", aw, y)
 

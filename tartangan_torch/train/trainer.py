@@ -45,9 +45,6 @@ _UNPORTED = {
                     "data parallelism over several devices"),
     "tp": (lambda a: a.tp > 1, "tensor parallelism"),
     "remat": (lambda a: a.remat, "rematerialization"),
-    "fid": (lambda a: a.fid, "the FID component"),
-    "metrics_collector": (lambda a: a.metrics_collector is not None,
-                          "the metrics collectors"),
     "profile_dir": (lambda a: a.profile_dir is not None,
                     "the profiler component"),
     "timing": (lambda a: a.timing, "the profiler component"),
@@ -193,16 +190,23 @@ class Trainer:
         return torch.randn((n, self.gan_config.latent_dims),
                            generator=self.z_gen, device=self.device)
 
-    def sample_g(self, n=None, target_g=False, z=None):
-        """Images (NHWC float32 numpy in [-1, 1]) from random or given z,
-        with train-mode BatchNorm that leaves the running statistics as
-        they are (the JAX sampler discards its batch-stat update)."""
+    def generate(self, n=None, target_g=False, z=None):
+        """Images (NCHW in [-1, 1], the compute dtype) on the training
+        device from random or given z, with train-mode BatchNorm that
+        leaves the running statistics as they are (the JAX sampler discards
+        its batch-stat update). No host synchronization: the FID component
+        feeds these to Inception on the device."""
         if z is None:
             z = self.sample_z(n)
         z = torch.as_tensor(z, device=self.device)
         g = self.state.g_target if target_g else self.state.g
         with torch.no_grad():
-            out = g(z, train=True)
+            return g(z, train=True)
+
+    def sample_g(self, n=None, target_g=False, z=None):
+        """``generate``'s images as NHWC float32 numpy (the image
+        sampler's)."""
+        out = self.generate(n, target_g, z)
         return out.permute(0, 2, 3, 1).float().cpu().numpy()
 
     # --------------------------------------------------------------- state
@@ -257,7 +261,24 @@ class Trainer:
     def get_component_classes(cls, args):
         from .components.image_sampler import ImageSamplerComponent
         from .components.model_checkpoint import ModelCheckpointComponent
-        return [ImageSamplerComponent, ModelCheckpointComponent]
+        classes = [ImageSamplerComponent, ModelCheckpointComponent]
+
+        if args.fid:
+            from .components.metrics.fid import FIDComponent
+            classes.append(FIDComponent)
+
+        if args.metrics_collector:
+            from .components.metrics import (
+                KatibMetricsComponent,
+                KubeflowMetricsComponent,
+                TensorboardComponent,
+            )
+            classes.append({
+                "katib": KatibMetricsComponent,
+                "kubeflow": KubeflowMetricsComponent,
+                "tensorboard": TensorboardComponent,
+            }[args.metrics_collector])
+        return classes
 
     @classmethod
     def create_from_cli(cls, argv=None):
@@ -327,11 +348,11 @@ class Trainer:
                        help="Emit each progress refresh on its own line "
                             "instead of rewriting one line in place")
         p.add_argument("--metrics-collector", default=None,
-                       help="Metric collector (not ported yet)")
+                       help="Metric collector: katib, kubeflow, tensorboard")
         p.add_argument("--run-id", type=type_or_none(str), default=None,
                        help="Explicit run id (otherwise generated)")
         p.add_argument("--fid", action="store_true",
-                       help="Calculate FID test metric (not ported yet)")
+                       help="Calculate FID test metric")
         p.add_argument("--profile-dir", type=type_or_none(str), default=None,
                        help="Capture a device trace (not ported yet)")
         p.add_argument("--timing", action="store_true",

@@ -1,8 +1,8 @@
 """The port's entry points run float32 as float32 (no TF32).
 
 PyTorch lets cuDNN run float32 convolutions in TF32 unless told otherwise.
-Building the trainer or loading the serve app's generator turns TF32 off
-for cuDNN and cuBLAS (``tartangan_torch/utils/precision.py``). The flags
+Building the trainer, loading the serve app's generator or running the
+eval CLIs turns TF32 off for cuDNN and cuBLAS (``tartangan_torch/utils/precision.py``). The flags
 are process-wide settings that exist on a CPU build too, so the test runs
 here with ``--device cpu``.
 """
@@ -64,4 +64,21 @@ def test_building_the_serve_app_turns_tf32_off(tf32_on, tmp_path):
     app = serve._ServeApp(serve._ServeApp.parse_cli_args(
         [str(tmp_path / "run"), "--device", "cpu"]))
     app.load_generator(target=not app.args.no_target)
+    assert _tf32_flags() == (False, False)
+
+
+@pytest.mark.parametrize("cli", ["moments", "port_weights"])
+def test_eval_clis_turn_tf32_off(tf32_on, tiny_archive, tmp_path, cli):
+    """``python -m tartangan_torch.eval.{moments,port_weights}``: the
+    Gram products of the moments and the FID need IEEE float32."""
+    from tartangan_torch.eval import moments, port_weights
+    from tartangan_torch.models.inception import init_inception
+    assert _tf32_flags() == (True, True)
+    if cli == "moments":
+        moments.main([tiny_archive, str(tmp_path / "m.npz"), "--batch-size",
+                      "8", "--device", "cpu", "--quiet-logs"])
+    else:
+        pth = tmp_path / "inception.pth"
+        torch.save(init_inception().state_dict(), pth)
+        port_weights.main([str(pth), str(tmp_path / "w.npz")])
     assert _tf32_flags() == (False, False)
