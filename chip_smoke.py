@@ -130,6 +130,38 @@ printing a result:
    the one readback; the Newton-Schulz FID on the card against the float64
    ``eigh`` form on the same mu and sigma (TOL_FID_NS); the closure's
    parts (G sampling, Inception, moments, Newton-Schulz, IS) timed apart.
+11. dispatch (``--device-data``, ``--steps-per-call K`` replayed from
+   captured CUDA graphs, ``--profile-dir``/``--timing``, ``--activation
+   selu``): '128' at B 128 on the 512x512 archive repeated to 1024 rows
+   (128x128 crops gathered on the card), through ``create_from_cli`` and
+   ``.train()``: 2 calls of 4 steps in float32 and in bfloat16, each
+   trainer's own graph then replayed against the same 4 steps run eagerly
+   from one state and one set of draws (``hold_graph``): at the training
+   rates bit for bit where eager reproduces itself (bfloat16), else the
+   losses and each parameter group's change in norm within
+   TOL_GRAPH_TRAINED; with both rates 0 (device tensors the graph reads)
+   the losses TOL_STEP_LOSS, the statistics, the EMA target and Adam's
+   moments TOL_STEP_GRAD; the losses of the rates-0 run farther than
+   TOL_GRAPH_TRAINED from the trained run's; ``make_adam``'s capturable
+   Adam against Adam with ``capturable=False``
+   over 3 steps on G's parameters (TOL_ADAM); 2 calls of 3 steps with
+   ``--r1-interval 2``, R1 (gp > 0) on exactly steps 0, 2 and 4, from 2
+   graphs; one call after the capture under
+   ``set_sync_debug_mode("error")`` and a profiled one with no
+   host-to-device copy. Then '128' timed three ways in each dtype (the
+   host archive at K = 1 with its pinned copy, ``--device-data`` at K = 1,
+   and at K = 4 replayed; float32 once, bfloat16 3 times in turns): per
+   step, images/s, and from one more unit the peak memory with the
+   graph's pool and the idle share (eager: a profile, with host launch
+   calls; a replay: CUDA events). Then the '512thin' parity path of phase
+   7 at B 64 with
+   ``--device-data --steps-per-call 2`` in float32 and bfloat16: K1-K5's
+   device events in one replay twice phase 7's per step, and the replay
+   held against eager as above; the bfloat16 path timed at K = 1 against
+   K = 2 replayed. Then a
+   '128' run with ``--profile-dir --timing --timing-freq 2`` (a trace with
+   device kernels, three ``images_per_sec``) and one step with
+   ``--activation selu``.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
@@ -145,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import faulthandler
 import gc
 import json
 import re
@@ -162,6 +195,7 @@ from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
+
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -195,6 +229,17 @@ TOL_G = dict(rtol=1e-3, atol=1e-3)
 # blocks downstream of D's attention and R1's second order on top
 TOL_STEP_LOSS = dict(rtol=1e-4, atol=1e-6)
 TOL_STEP_GRAD = dict(rtol=0, atol=1e-3)
+# a graph replay of K train steps at the training rates against the same
+# steps eager, where eager does not reproduce itself (float32's atomic
+# sums): the losses relative, and each group of parameters' change over
+# the call in norm (``hold_graph``). Two eager runs of 4 '128' steps were
+# seen up to 5.5e-4 apart in a loss, the replay up to 1.6e-3 from eager and
+# 4.6e-4 in a norm (NVIDIA H100); rates 0 move a loss 0.45-0.7 from them
+TOL_GRAPH_TRAINED = 1e-2
+# capturable Adam against Adam with capturable=False: parameters and
+# moments within a few float32 ulps (rtol), parameters also within a
+# thousandth of the learning rate (atol x lr)
+TOL_ADAM = dict(rtol=1e-6, atol=1e-3)
 
 # the parity path's step against the plain step in float64 on the same
 # weights, batch and latents. Gradients: the max abs error over the max-abs
@@ -915,7 +960,9 @@ def profile_generate(app, z):
 
 def profile_call(label, fn):
     """Device time by kernel for one call of ``fn`` (which ends in a
-    synchronization), and the device's idle share of its host-clock time."""
+    synchronization), and the device's idle share of its host-clock time.
+    Returns the idle share (None where no device time was seen) and the
+    profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -930,7 +977,7 @@ def profile_call(label, fn):
     busy_us = sum(e.self_device_time_total for e in rows)
     if not busy_us:
         log(f"profile {label}: device time not measured")
-        return
+        return None, prof
     # busy: the union of the device events' intervals, so that kernels
     # that overlap (on other streams) count once; their sum beside it
     spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
@@ -952,6 +999,7 @@ def profile_call(label, fn):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x "
             f"{e.key[:90]}")
+    return 1 - union_ns / 1e3 / wall_us, prof
 
 
 def set_attention_kernel(trainer, use_kernel):
@@ -3061,6 +3109,589 @@ def phase_eval(dev, archive, smi):
         torch.cuda.empty_cache()
 
 
+DISPATCH_DIR = ROOT / "build" / "chip_smoke_dispatch"
+# the '128' cells' archive: the 192 512x512 tartans repeated to 1024 rows,
+# 8 batches of 128 an epoch (two calls of K = 4); each step crops 128x128
+DISPATCH_IMAGES = 1024
+# K1-K5's device events in a replay: K1 and K2 by their main kernels, K3
+# by its one, K4 by its reduce, K5 by the conv kernel K4 shares with it
+REPLAY_EVENTS = {"attention_fwd": kernel_names("attention_fwd_kernel"),
+                 "attention_bwd": kernel_names("dkdv_kernel"),
+                 "parity_conv": kernel_names("tile_kernel"),
+                 "gblock_a": kernel_names("reduce_partials"),
+                 "gblock_conv": kernel_names("conv_kernel")}
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def dispatch_trainer(archive, run_id, *extra, parity=False):
+    """A trainer of '128' at B 128, or of '512thin' at B 64 with the
+    parity path of phase 7 (``--parity-blocks on``, FUSED_G, fused G
+    blocks), through ``create_from_cli``."""
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.train.cnn import CNNTrainer
+    out = DISPATCH_DIR / "out"
+    shutil.rmtree(out / run_id, ignore_errors=True)
+    argv = [str(archive), "--config", "512thin" if parity else "128",
+            "--batch-size", "64" if parity else "128", "--epochs", "1",
+            "--device", "cuda", "--run-id", run_id, "--output", str(out),
+            "--quiet-logs", "--gen-freq", "100000", *extra]
+    if not parity:
+        return CNNTrainer.create_from_cli(argv)
+    P.FUSED_G = True
+    return parity_trainer(argv + ["--parity-blocks", "on"])
+
+
+def train_dispatch(label, trainer, calls, k):
+    """``trainer.train()``; every loss finite, ``calls`` stacked (K,)
+    entries of each metric; returns the flat gp."""
+    from tartangan_torch.train.multi import GraphedChunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flat = {}
+    for key in ("g_loss", "d_loss", "gp"):
+        entries = trainer.logs[key]
+        assert len(entries) == calls and all(
+            e.shape == (k,) for e in entries), (key, entries)
+        flat[key] = torch.cat(entries).float().cpu()
+        assert torch.isfinite(flat[key]).all(), (key, flat[key])
+    assert trainer.steps == calls * k
+    call = trainer._chunk_call
+    assert isinstance(call, GraphedChunk), type(call)
+    log(f"dispatch {label}: {calls} calls of {k} steps in {wall:.1f} s "
+        f"(host clock: warm-up, capture of {len(call.graphs)} graph(s), "
+        f"replays, sampling and checkpoints); losses "
+        f"{ {k_: [round(float(v), 4) for v in t] for k_, t in flat.items()} }")
+    return flat["gp"]
+
+
+def state_groups(state):
+    """The train state's tensors by group: parameters, statistics and
+    Adam's moments of G and D, and the EMA target."""
+    groups = {"g_target params": list(state.g_target.parameters())}
+    for name in ("g", "d"):
+        m, opt = getattr(state, name), getattr(state, f"opt_{name}")
+        groups[f"{name} params"] = list(m.parameters())
+        groups[f"{name} stats"] = list(m.buffers())
+        for key in ("exp_avg", "exp_avg_sq"):
+            groups[f"{name} adam {key}"] = [opt.state[p][key]
+                                            for p in m.parameters()]
+    return groups
+
+
+def graph_run(state, fn, inputs, step0, draws, tensors, start):
+    """Put the train state back at ``start``, run one K-step call through
+    ``fn`` and return its metrics, the state by group and Adam's step
+    counts (clones)."""
+    with torch.no_grad():
+        for t, s0 in zip(tensors, start):
+            t.copy_(s0)
+    metrics = {k: v.clone() for k, v in
+               fn(state, inputs, step0, **draws).items()}
+    groups = {name: [t.detach().clone() for t in ts]
+              for name, ts in state_groups(state).items()}
+    steps = [o.state[p]["step"].clone() for o in (state.opt_g, state.opt_d)
+             for p in o.state]
+    return metrics, groups, steps
+
+
+def rel_loss_err(a, b):
+    """Each metric's largest error relative to ``b``, over the K steps."""
+    return {k: float(((a[k] - b[k]).abs() / b[k].abs().clamp_min(1e-30))
+                     .max()) for k in b}
+
+
+def run_errors(run, ref, before):
+    """``run`` against ``ref`` (each a ``graph_run``): the losses' largest
+    relative error; for each group of parameters, the error in the norm of
+    its change from ``before`` over that norm (and the norm of the
+    difference of the changes over it); for the statistics and Adam's
+    moments, the max abs error over the group's max-abs."""
+    errs = {"losses": max(rel_loss_err(run[0], ref[0]).values())}
+    change = {}
+    with torch.no_grad():
+        for name, group in ref[1].items():
+            if name in before:
+                d_r = torch.cat([(a - b).flatten().double()
+                                 for a, b in zip(run[1][name], before[name])])
+                d_e = torch.cat([(a - b).flatten().double()
+                                 for a, b in zip(group, before[name])])
+                norm = float(d_e.norm())
+                errs[name] = abs(float(d_r.norm()) - norm) / (norm or 1.0)
+                change[name] = (norm, float((d_r - d_e).norm()) / (norm or 1))
+            else:
+                scale = max(float(t.abs().max()) for t in group) or 1.0
+                errs[name] = max(float((a - b).abs().max()) for a, b in
+                                 zip(run[1][name], group)) / scale
+    return errs, change
+
+
+def same_runs(a, b):
+    """Two ``graph_run`` results equal bit for bit."""
+    return (all(torch.equal(a[0][k], b[0][k]) for k in b[0])
+            and all(torch.equal(x, y) for k in b[1]
+                    for x, y in zip(a[1][k], b[1][k]))
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def hold_graph(label, trainer):
+    """The trainer's own K-step graph, the one it trained with and that
+    ``time_dispatch`` times, replayed against the same K steps run eagerly
+    (``multi_step``, the graph's plain version), from one state and one set
+    of draws, at the training rates and then with both rates 0 (the rates
+    are device tensors that the graph reads, ``make_adam``).
+
+    At the training rates every step after the first reads the weights the
+    steps before it updated, and G's loss reads D's update of its step.
+    Where the replay and eager differ at all, a second eager run (the
+    witness) must differ too: if eager reproduces itself bit for bit (as in
+    bfloat16), so must the replay. Then the losses' largest relative error
+    and, for each group of parameters, the error in the norm of its change
+    over the call are held within TOL_GRAPH_TRAINED; the statistics and
+    Adam's moments are logged. In float32 atomic sums (cuDNN, the bilinear
+    backward) differ from run to run, and Adam with beta1 = 0 moves a
+    weight whose gradient is near 0 by +-lr on the sign of its noise, so
+    that two eager runs of 4 steps land up to 5.5e-4 apart in a loss and
+    4.0e-2 of the max-abs in G's first moment (NVIDIA H100): the change's
+    norm hardly moves, the weights do.
+
+    With both rates 0 each step's gradients come from the same weights:
+    the losses within TOL_STEP_LOSS, the statistics, the EMA target and
+    Adam's moments within TOL_STEP_GRAD of each group's max-abs. The eager
+    run with rates 0 also shows that the trained check sees the update: its
+    losses are farther than TOL_GRAPH_TRAINED from the trained run's, and
+    every group of parameters moved at the training rates. Adam's step
+    counts are equal in both pairs. Puts the state and the rates back."""
+    from tartangan_torch.train.multi import state_tensors
+    state, call = trainer.state, trainer._chunk_call
+    step0 = trainer.steps
+    assert call.multi_step.pattern(step0) in call.graphs, "a new capture"
+    groups = [g for o in (state.opt_g, state.opt_d) for g in o.param_groups]
+    assert all(isinstance(g["lr"], torch.Tensor) for g in groups)
+    rates = [float(g["lr"]) for g in groups]
+    tensors = state_tensors(state)
+    start = [t.detach().clone() for t in tensors]
+    before = {name: [t.detach().clone() for t in ts]
+              for name, ts in state_groups(state).items()
+              if name.endswith("params")}
+    draws = trainer.chunk_draws(True)
+    args = (trainer._archive, step0, draws, tensors, start)
+    runs = {}
+    try:
+        runs["graph"] = graph_run(state, call, *args)
+        runs["eager"] = graph_run(state, call.multi_step, *args)
+        if not same_runs(runs["graph"], runs["eager"]):
+            runs["witness"] = graph_run(state, call.multi_step, *args)
+        for g in groups:
+            g["lr"].fill_(0.0)
+        runs["graph lr 0"] = graph_run(state, call, *args)
+        runs["eager lr 0"] = graph_run(state, call.multi_step, *args)
+        torch.cuda.synchronize()
+    finally:
+        for g, r in zip(groups, rates):
+            g["lr"].fill_(r)
+        with torch.no_grad():
+            for t, s0 in zip(tensors, start):
+                t.copy_(s0)
+    graph, eager = runs["graph"], runs["eager"]
+    errs, change = run_errors(graph, eager, before)
+    errs0, _ = run_errors(runs["graph lr 0"], runs["eager lr 0"], before)
+    seen = max(rel_loss_err(runs["eager lr 0"][0], eager[0]).values())
+    witness = runs.get("witness")
+    reproducible = witness is not None and same_runs(witness, eager)
+    trained = {k: v for k, v in errs.items()
+               if k == "losses" or k in before}
+    shown = {k: f"{v:.2e}" for k, v in errs.items()}
+    log(f"hold graph {label}: the trainer's replay of "
+        f"{len(eager[0]['g_loss'])} steps vs the same steps eager; at the "
+        f"training rates g_loss {graph[0]['g_loss'].tolist()} vs "
+        f"{eager[0]['g_loss'].tolist()}, "
+        + ("equal bit for bit" if witness is None else
+           f"a second eager run {'equal' if reproducible else 'not equal'} "
+           f"to the first bit for bit; the losses' relative error and each "
+           f"parameter group's error in the norm of its change (tolerance "
+           f"{TOL_GRAPH_TRAINED}), the rest's max abs error over its "
+           f"max-abs (logged): {shown}")
+        + f"; the change's norm and the norm of the difference of the "
+        f"changes over it "
+        f"{ {k: f'{n:.3e}, {d:.3e}' for k, (n, d) in change.items()} }; "
+        f"rates 0 move a loss {seen:.3e} from the trained run; with rates "
+        f"0, error over each group's max-abs (parameters: of their change) "
+        f"{ {k: f'{v:.2e}' for k, v in errs0.items()} } (losses "
+        f"{TOL_STEP_LOSS['rtol']} relative, the rest "
+        f"{TOL_STEP_GRAD['atol']})")
+    bad = {}
+    if witness is not None:
+        if reproducible:
+            bad["eager reproduces itself, the replay does not"] = shown
+        bad.update({k: v for k, v in trained.items()
+                    if not v <= TOL_GRAPH_TRAINED})
+    bad.update({k: "did not move" for k, (n, _) in change.items()
+                if not n > 0})
+    if not seen > TOL_GRAPH_TRAINED:
+        bad["rates 0 move no loss past the tolerance"] = seen
+    for k in eager[0]:
+        torch.testing.assert_close(runs["graph lr 0"][0][k],
+                                   runs["eager lr 0"][0][k], **TOL_STEP_LOSS)
+    bad.update({f"{k}, rates 0": v for k, v in errs0.items()
+                if k != "losses" and not v <= TOL_STEP_GRAD["atol"]})
+    for a, b in ((graph, eager), (runs["graph lr 0"], runs["eager lr 0"])):
+        if not all(torch.equal(x, y) for x, y in zip(a[2], b[2])):
+            bad["Adam's step counts"] = [x.item() for x in a[2][:2]]
+    if bad:
+        raise AssertionError(f"graph vs eager {label}: {bad}")
+
+
+def hold_adam(params, lr):
+    """``make_adam`` on the card (capturable, the optimizer of every CUDA
+    run) against torch's Adam with the same hyperparameters and
+    ``capturable=False``, the form the CPU tests hold against
+    ``optax.adam``: 3 steps of seeded gradients on two copies of
+    ``params``. Each parameter, moment and step count within TOL_ADAM (a
+    few float32 ulps; the two compute the bias corrections apart, on the
+    card and on the host); an update without its bias correction or at
+    another rate is off by lr or more."""
+    from tartangan_torch.train.common import make_adam
+    copies = [[p.detach().clone().requires_grad_() for p in params]
+              for _ in range(2)]
+    cap = make_adam(copies[0], lr)
+    plain = torch.optim.Adam(copies[1], lr=lr, betas=(0.0, 0.999),
+                             eps=1e-8, capturable=False)
+    assert cap.defaults["capturable"], cap.defaults
+    gen = torch.Generator(device=params[0].device).manual_seed(11)
+    for _ in range(3):
+        for a, b in zip(*copies):
+            a.grad = 1e-3 * torch.randn(a.shape, generator=gen,
+                                        device=a.device)
+            b.grad = a.grad.clone()
+        cap.step()
+        plain.step()
+    worst = {}
+    for a, b in zip(*copies):
+        pairs = [("params", a, b)] + [
+            (k, cap.state[a][k], plain.state[b][k])
+            for k in ("exp_avg", "exp_avg_sq", "step")]
+        for k, x, y in pairs:
+            x, y = x.detach().double().cpu(), y.detach().double().cpu()
+            err = float(((x - y).abs() / (lr if k == "params" else
+                                           y.abs().clamp_min(1e-30))).max())
+            worst[k] = max(worst.get(k, 0.0), err)
+            torch.testing.assert_close(
+                x, y, rtol=TOL_ADAM["rtol"],
+                atol=TOL_ADAM["atol"] * lr if k == "params" else 0.0)
+    moved = max(float((b - p).abs().max()) for b, p in zip(copies[1], params))
+    log(f"hold adam: make_adam (capturable) vs torch Adam (capturable=False) "
+        f"over 3 steps on {len(params)} tensors "
+        f"({sum(p.numel() for p in params)} values), lr {lr}: largest "
+        f"move {moved:.3e}; largest error (params over lr, the rest "
+        f"relative) { {k: f'{v:.2e}' for k, v in worst.items()} } (tolerance "
+        f"{TOL_ADAM['rtol']}; parameters also {TOL_ADAM['atol']} x lr)")
+
+
+def replay_events(trainer):
+    """K1-K5's device events and the host's launch calls in one call
+    (draws and replay), from ``torch.profiler``, the window held open past
+    the call (it drops late events otherwise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_batch(None)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    counts = dict.fromkeys(REPLAY_EVENTS, 0)
+    host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, pats in REPLAY_EVENTS.items():
+                if any(p in e.name for p in pats):
+                    counts[k] += 1
+        elif e.name in HOST_LAUNCHES:
+            host[e.name] = host.get(e.name, 0) + 1
+    counts["gblock_b"] = counts.pop("gblock_conv") - counts["gblock_a"]
+    return counts, host
+
+
+def memory_of(fn, pool):
+    """Peak device memory of one ``fn`` (GiB): the peak of allocated
+    tensors (every live one in the process) and, for a graph, its pool's
+    reserved segments, which a replay uses without allocating."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    pool_bytes = 0
+    if pool is not None:
+        pool_bytes = sum(seg["total_size"]
+                         for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg["segment_pool_id"]) == tuple(pool))
+    return {"peak_gib": round((peak + pool_bytes) / 2**30, 3),
+            "transient_gib": round((peak - base + pool_bytes) / 2**30, 3),
+            "pool_gib": round(pool_bytes / 2**30, 3)}
+
+
+def event_idle(fn):
+    """The device's idle share of one ``fn()`` (which does not
+    synchronize): 1 - the span between CUDA events recorded before and
+    after it on the stream over the host-clock time to the synchronize.
+    For a graph replay, whose kernels run back to back, the span is the
+    busy time that a profile would give."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return 1 - start.elapsed_time(end) / ((time.perf_counter() - t0) * 1e3)
+
+
+def time_dispatch(label, ways, batch, reps):
+    """``ways``: name -> (fn, steps, pool): ``fn`` runs ``steps`` train
+    steps of a warm trainer without synchronizing; ``pool`` is a graph's
+    (None for eager ways). Each way ``reps`` times in turns (host clock
+    around ``fn`` and a synchronize), per step and per image, then once
+    more for its peak memory and idle share: an eager way profiled (idle
+    from the union of its device events, host launch calls), a graph way
+    by CUDA events (``event_idle``), not profiled: in five runs of the
+    whole smoke out of five, the profile of the '128' bfloat16 K = 4
+    replay here crashed the process in the replay (a segmentation fault),
+    though never in phase 11 alone (PyTorch 2.11, CUDA 12.8; the cause is
+    not known). Returns {name: record}."""
+    def once(fn, steps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+    times = {name: [] for name in ways}
+    for _ in range(reps):
+        for name, (fn, steps, _) in ways.items():
+            times[name].append(once(fn, steps))
+    out = {}
+    for name, (fn, steps, pool) in ways.items():
+        measured = []
+        if pool is None:
+            memory = memory_of(lambda: measured.append(profile_call(
+                f"dispatch {label} {name}", lambda: once(fn, steps))), pool)
+            idle, prof = measured[0]
+            launches = {}
+            for e in prof.events():
+                if e.name in HOST_LAUNCHES:
+                    launches[e.name] = launches.get(e.name, 0) + 1
+            launches = {k: v / steps for k, v in launches.items()}
+        else:
+            memory = memory_of(lambda: measured.append(event_idle(fn)), pool)
+            idle, launches = measured[0], "not profiled"
+        med = statistics.median(times[name])
+        out[name] = dict(memory=memory, ms_per_step=round(med, 3),
+                         images_per_s=round(1e3 * batch / med, 1),
+                         ms=[round(t, 3) for t in times[name]],
+                         idle_share=None if idle is None else round(idle, 3),
+                         host_launch_calls_per_step=launches)
+        log(f"time dispatch {label} {name} B{batch} (host clock, "
+            f"synchronized, {reps} in turns): {out[name]}")
+    return out
+
+
+def phase_dispatch(archive, smi):
+    """Phase 11: the trainer's data and dispatch paths on the card
+    (``--device-data``, ``--steps-per-call K`` replayed from CUDA graphs,
+    ``--profile-dir``/``--timing``, ``--activation selu``). Returns the
+    timing records."""
+    from tartangan_torch.train.multi import GraphedChunk
+    t_phase = last = time.perf_counter()
+
+    def lap(part):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"dispatch: {part} took {now - last:.1f} s (host clock)")
+        last = now
+    DISPATCH_DIR.mkdir(parents=True, exist_ok=True)
+    big = DISPATCH_DIR / "tartans512x1024.npy"
+    np.save(big, np.resize(np.load(archive), (DISPATCH_IMAGES, 512, 512, 3)))
+    results = {"card": smi}
+    lap("the 1024-row archive")
+
+    # '128' B 128, --device-data --steps-per-call 4, two calls a dtype
+    k4 = {}
+    for dtype in ("f32", "bf16"):
+        t = dispatch_trainer(big, f"k4_{dtype}", "--dtype", dtype,
+                             "--device-data", "--steps-per-call", "4")
+        train_dispatch(f"'128' B128 {dtype} K4", t, 2, 4)
+        assert len(t._chunk_call.graphs) == 1
+        hold_graph(f"'128' B128 {dtype} K4", t)
+        if dtype == "f32":
+            hold_adam(list(t.state.g.parameters()), t.args.lr_g)
+        k4[dtype] = t
+        lap(f"'128' {dtype} K4: 2 calls and the hold")
+    # lazy R1 every 2 steps at K = 3: two patterns, R1 on steps 0, 2, 4
+    t = dispatch_trainer(big, "r1", "--dtype", "bf16", "--device-data",
+                         "--steps-per-call", "3", "--r1-interval", "2")
+    gp = train_dispatch("'128' B128 bf16 K3 --r1-interval 2", t, 2, 3)
+    if (gp > 0).tolist() != [True, False, True, False, True, False]:
+        raise AssertionError(f"R1 cadence: gp {gp.tolist()}")
+    assert len(t._chunk_call.graphs) == 2
+    log(f"dispatch: R1 ran on steps 0, 2, 4 of 0-5 (gp {gp.tolist()}), "
+        f"from 2 graphs")
+    del t
+    # after the capture: a call makes no host sync and no H2D copy
+    t = k4["bf16"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = t.train_batch(None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(m["g_loss"]).all()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t.train_batch(None)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    h2d = [e.name for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "HtoD" in e.name]
+    kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    log(f"dispatch: a K4 call under set_sync_debug_mode('error') ran; "
+        f"profiled, {kernels} device events, {len(h2d)} host-to-device "
+        f"copies")
+    if h2d or not kernels:
+        raise AssertionError(f"H2D copies {h2d}, device events {kernels}")
+    del prof
+    lap("R1 cadence, sync and H2D checks")
+
+    # times: the host archive at K = 1, --device-data at K = 1 and K = 4;
+    # float32 once (its turns differed by under 0.1 %), bfloat16 3 turns
+    for dtype, reps in (("f32", 1), ("bf16", 3)):
+        t1 = dispatch_trainer(big, f"k1_{dtype}", "--dtype", dtype,
+                              "--device-data", "--epochs", "0")
+        t1.train()
+        t1.train_batch(None)  # warm-up
+        rng = np.random.default_rng(0)
+        host = [torch.from_numpy(t1.dataset.batch(
+            rng.integers(0, DISPATCH_IMAGES, 128), rng)).pin_memory()
+            for _ in range(4)]
+        t4 = k4.pop(dtype)
+
+        def host_k1(t1=t1, host=host):
+            for b in host:
+                t1.train_batch(b.to(t1.device, non_blocking=True))
+
+        def device_k1(t1=t1):
+            for _ in range(4):
+                t1.train_batch(None)
+        results[f"128_{dtype}"] = time_dispatch(f"'128' {dtype}", {
+            "host archive K1": (host_k1, 4, None),
+            "device archive K1": (device_k1, 4, None),
+            "device archive K4 graph": (lambda t4=t4: t4.train_batch(None),
+                                        4, t4._chunk_call._pool)}, 128, reps)
+        del t1, t4, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"'128' {dtype} timed three ways")
+
+    # '512thin' parity path at B 64, --device-data --steps-per-call 2
+    per_step = {"attention_fwd": K1_PER_STEP, "attention_bwd": K2_PER_STEP,
+                "parity_conv": K3_PER_STEP, "gblock_a": K4_PER_STEP,
+                "gblock_b": K5_PER_STEP}
+    counters = parity_counters()
+    for dtype in ("f32", "bf16"):
+        t = dispatch_trainer(archive, f"parity_k2_{dtype}", "--dtype", dtype,
+                             "--device-data", "--steps-per-call", "2",
+                             parity=True)
+        per_call = []
+        train_batch = t.train_batch
+
+        def counted(batch, train_batch=train_batch, per_call=per_call):
+            before = {k: f.launches for k, f in counters.items()}
+            metrics = train_batch(batch)
+            per_call.append({k: f.launches - before[k]
+                             for k, f in counters.items()})
+            return metrics
+        t.train_batch = counted
+        train_dispatch(f"'512thin' parity B64 {dtype} K2", t, 1, 2)
+        t.train_batch = train_batch
+        counts, host = replay_events(t)
+        log(f"dispatch parity {dtype}: wrapper launches in the first call "
+            f"(its warm-up and its capture, 2 steps each) {per_call}; in one "
+            f"replayed call, device events {counts}, host launch calls "
+            f"{host}")
+        want = {k: 2 * n for k, n in per_step.items()}
+        if counts != want or per_call != [{k: 2 * v
+                                           for k, v in want.items()}]:
+            raise AssertionError(f"K1-K5 in a replay {counts}, want {want}; "
+                                 f"in the first call {per_call}")
+        hold_graph(f"'512thin' parity B64 {dtype} K2", t)
+        lap(f"'512thin' parity {dtype} K2: a call, its events and the hold")
+        if dtype == "f32":
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    t1 = dispatch_trainer(archive, "parity_k1_bf16", "--dtype", "bf16",
+                          "--device-data", "--epochs", "0", parity=True)
+    t1.train()
+    t1.train_batch(None)  # warm-up
+
+    def parity_k1(t1=t1):
+        for _ in range(2):
+            t1.train_batch(None)
+    results["512thin_parity_bf16"] = time_dispatch(
+        "'512thin' parity bf16", {
+            "device archive K1": (parity_k1, 2, None),
+            "device archive K2 graph": (lambda: t.train_batch(None), 2,
+                                        t._chunk_call._pool)}, 64, 3)
+    del t, t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("'512thin' parity bf16 timed two ways")
+
+    # --profile-dir with --timing: a trace of calls 2 and 4 (replays)
+    trace_dir = DISPATCH_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t = dispatch_trainer(big, "profile", "--dtype", "bf16", "--device-data",
+                         "--steps-per-call", "2", "--profile-dir",
+                         str(trace_dir), "--profile-start", "2",
+                         "--profile-steps", "2", "--timing",
+                         "--timing-freq", "2")
+    train_dispatch("'128' B128 bf16 K2 --profile-dir --timing", t, 4, 2)
+    trace = json.loads((trace_dir / "trace_2.json").read_text())
+    cats = {}
+    for e in trace["traceEvents"]:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    rates = [float(r) for r in t.logs["images_per_sec"]]
+    log(f"dispatch: --profile-dir trace {trace_dir / 'trace_2.json'}: "
+        f"{len(trace['traceEvents'])} events by category {cats}; "
+        f"images_per_sec {rates}")
+    if not cats.get("kernel") or len(rates) != 3 or min(rates) <= 0:
+        raise AssertionError(f"trace categories {cats}, rates {rates}")
+    del t, trace
+    lap("--profile-dir --timing")
+
+    # --activation selu: '128' trains one step (192 images, one batch)
+    t = dispatch_trainer(archive, "selu", "--dtype", "bf16", "--activation",
+                         "selu")
+    t.train()
+    losses = {k: float(t.logs[k][0]) for k in ("g_loss", "d_loss", "gp")}
+    log(f"dispatch: '128' B128 bf16 --activation selu, one step: {losses}")
+    assert t.steps == 1 and all(np.isfinite(list(losses.values())))
+    assert not isinstance(t._chunk_call, GraphedChunk)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("--activation selu")
+    log(f"dispatch: phase 11 took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+    return results
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -3078,6 +3709,7 @@ def main():
         print(f"chip_smoke: the tartangan_torch package is missing ({e})",
               file=sys.stderr)
         return 1
+    faulthandler.enable()  # a crash in native code prints the Python stack
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3152,6 +3784,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_eval(dev, archive, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dispatch(archive, smi)
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]

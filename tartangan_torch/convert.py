@@ -142,14 +142,19 @@ def adam_to_flax(module: nn.Module, opt: torch.optim.Adam) -> dict:
 
 def adam_from_flax(module: nn.Module, opt: torch.optim.Adam, tree) -> None:
     """Load an ``adam_to_flax`` tree (or one the JAX trainer wrote) into
-    ``opt``'s state for ``module``'s parameters."""
+    ``opt``'s state for ``module``'s parameters, replacing it; a
+    capturable Adam keeps its step count on the parameter's device. The
+    trainer resumes before its first call, so before any CUDA graph
+    captures the state (``train/multi.py``)."""
     state = tree["0"]
     mu = from_flax({"params": state["mu"]})
     nu = from_flax({"params": state["nu"]})
     step = float(np.asarray(state["count"]))
+    on_device = opt.defaults.get("capturable", False)
     for name, p in module.named_parameters():
         opt.state[p] = {
-            "step": torch.tensor(step, dtype=torch.float32),
+            "step": torch.tensor(step, dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
             "exp_avg": mu[name].to(p.device, p.dtype).clone(),
             "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
         }

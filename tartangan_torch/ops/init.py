@@ -5,7 +5,9 @@
 ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, and biases
 ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``. So the port reuses torch's own
 formula, drawn from the caller's generator. ``SelfAttention2d.gamma`` starts
-at 0 (``models/attention.py`` in both packages).
+at 0 (``models/attention.py`` in both packages). ``selu_normal`` is the
+``--activation selu`` re-initialization's draw (``tartangan_tpu/ops/
+init.py:30-37``).
 """
 from __future__ import annotations
 
@@ -41,3 +43,13 @@ def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         if isinstance(gamma, nn.Parameter):
             gamma.zero_()
     return module
+
+
+def selu_normal(fan_in: int):
+    """N(0, 1/fan_in): ``init(shape, generator, dtype=float32)``, the draw
+    of ``train/common.py::selu_reinit``."""
+    std = (1.0 / max(fan_in, 1)) ** 0.5
+
+    def init(shape, generator: torch.Generator, dtype=torch.float32):
+        return std * torch.randn(shape, generator=generator, dtype=dtype)
+    return init

@@ -28,7 +28,13 @@ from ..models.layers import update_batch_stats
 from ..models.losses import bce_with_logits, r1_gradient_penalty
 from ..models.pluggan import Discriminator, Generator
 from ..ops.init import init_module_
-from .common import bce_labels, ema_update, make_adam, normalize_batch
+from .common import (
+    bce_labels,
+    ema_update,
+    make_adam,
+    normalize_batch,
+    selu_reinit,
+)
 from .state import GANTrainState
 from .trainer import Trainer
 
@@ -109,6 +115,9 @@ class CNNTrainer(Trainer):
         init_gen = torch.Generator().manual_seed(args.seed)
         g = init_module_(self.build_generator(), init_gen)
         d = init_module_(self.build_discriminator(), init_gen)
+        if args.activation == "selu":
+            selu_reinit(g, init_gen)
+            selu_reinit(d, init_gen)
         if args.ema_start == "copy":
             g_target = copy.deepcopy(g)
         else:

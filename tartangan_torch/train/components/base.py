@@ -36,9 +36,8 @@ class TrainerComponent(abc.ABC):
 
     def every(self, freq, steps):
         """Periodic-fire predicate: True when the window [steps, steps + K)
-        of one call crosses a multiple of ``freq``, which is
-        ``steps % freq == 0`` at one step per call (K == 1, the only value
-        ported)."""
+        of one call (``--steps-per-call K``) crosses a multiple of
+        ``freq``, which is ``steps % freq == 0`` at one step per call."""
         k = getattr(self.trainer, "steps_per_call", 1)
         return (steps + k - 1) // freq > (steps - 1) // freq
 

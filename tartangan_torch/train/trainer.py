@@ -6,10 +6,14 @@ run id and ``config.args``, the epoch loop with component hooks and a
 SIGTERM-safe shutdown, the logs dict, and the checkpoint artifacts in the
 JAX trainer's layout (``g``, ``g_target``, ``d``, ``opt_g``, ``opt_d``).
 
-Batches are uint8 crops made on the host (``data/``), copied to the device
-one batch ahead from pinned memory, and normalized there by the step.
-Latents come from the trainer's own ``torch.Generator``, seeded by
-``--seed``, on the training device.
+Batches are uint8 crops made on the host (``data/``: an archive, or a
+directory of images) and copied to the device one batch ahead from pinned
+memory, or, under ``--device-data``, gathered on the device from the
+archive kept there (``data/device.py``); the step normalizes them.
+Latents (and the device archive's draws) come from the trainer's own
+``torch.Generator``, seeded by ``--seed``, on the training device.
+``--steps-per-call K`` runs K steps a call (``train/multi.py``), replayed
+from captured CUDA graphs on the card.
 
 Flags whose feature is not ported yet raise ``NotImplementedError`` when
 set away from their default (``_UNPORTED``); none is ignored.
@@ -17,6 +21,7 @@ set away from their default (``_UNPORTED``); none is ignored.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import random
 import signal
@@ -27,32 +32,30 @@ from datetime import datetime
 import torch
 
 from ..convert import adam_from_flax, adam_to_flax, from_flax, to_flax
+from ..data.device import (
+    crop_size_of,
+    draw,
+    gather_crop,
+    wrap_step_with_device_data,
+)
 from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
 from ..utils.precision import full_float32, resolve_dtype
 from .components.container import ComponentContainer
+from .multi import GraphedChunk, chunk_train_step, stack_batches
 from .progress import ProgressLine
 
 # flag -> (is it set away from its default?, what is missing)
 _UNPORTED = {
-    "device_data": (lambda a: a.device_data,
-                    "the device-resident archive"),
-    "steps_per_call": (lambda a: a.steps_per_call > 1,
-                       "multi-step calls"),
     "num_devices": (lambda a: a.num_devices not in (None, 1),
                     "data parallelism over several devices"),
     "tp": (lambda a: a.tp > 1, "tensor parallelism"),
     "remat": (lambda a: a.remat, "rematerialization"),
-    "profile_dir": (lambda a: a.profile_dir is not None,
-                    "the profiler component"),
-    "timing": (lambda a: a.timing, "the profiler component"),
     "checkpoint_format": (lambda a: getattr(a, "checkpoint_format",
                                             "msgpack") != "msgpack",
                           "orbax checkpoints"),
-    "activation": (lambda a: a.activation == "selu",
-                   "the SELU re-initialization"),
 }
 
 
@@ -74,14 +77,10 @@ class Trainer:
         self.args = args
         check_unported(args)
         if (getattr(args, "data_path", None)
-                and not is_s3_path(args.data_path)):
-            if not os.path.exists(args.data_path):
-                raise FileNotFoundError(
-                    f"data_path does not exist: {args.data_path}")
-            if os.path.isdir(args.data_path):
-                raise NotImplementedError(
-                    "a directory as data_path: the folder dataset is not "
-                    "ported yet; pass an .npz/.npy uint8 archive")
+                and not is_s3_path(args.data_path)
+                and not os.path.exists(args.data_path)):
+            raise FileNotFoundError(
+                f"data_path does not exist: {args.data_path}")
         self.device = torch.device(args.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda but no CUDA device is "
@@ -103,6 +102,8 @@ class Trainer:
 
         self.steps = 0
         self.epoch = 1
+        self.steps_per_call = max(getattr(args, "steps_per_call", 1) or 1, 1)
+        self._chunk_call = None
         self.z_gen = torch.Generator(device=self.device).manual_seed(args.seed)
 
     # ----------------------------------------------------------------- hooks
@@ -110,14 +111,41 @@ class Trainer:
         raise NotImplementedError
 
     def prepare_dataset(self):
+        """Directory -> the lazy-resize folder dataset (with its cache under
+        ``--dataset-cache``); file -> the archive with a random crop."""
+        img_size = self.g.max_size
+        if os.path.isdir(self.args.data_path):
+            from ..data.image_folder import ImageFolderDataset
+            dataset = ImageFolderDataset(self.args.data_path, img_size)
+            if self.args.dataset_cache:
+                dataset.load_cache(
+                    self.dataset_cache_path(img_size, root=dataset.root))
+            return dataset
         return ImageBytesDataset.from_path(self.args.data_path,
-                                           crop_size=self.g.max_size)
+                                           crop_size=img_size)
+
+    def dataset_cache_path(self, size, root=None):
+        root = root if root is not None else self.dataset.root
+        root_hash = hashlib.md5(root.encode("utf-8")).hexdigest()
+        return self.args.dataset_cache.format(root=root_hash, size=size)
+
+    def _setup_device_data(self):
+        """``--device-data``: the uint8 archive on the device, once."""
+        images = getattr(self.dataset, "images", None)
+        if images is None:
+            raise NotImplementedError(
+                "--device-data requires a pre-resized uint8 archive "
+                "(ImageBytesDataset); a folder dataset streams from the host")
+        self._crop = crop_size_of(images.shape, self.dataset.crop_size)
+        self._archive = torch.from_numpy(images).to(self.device)
 
     # ------------------------------------------------------------ train loop
     def train(self):
         self.build_models()
         print(f"Preparing dataset from {self.args.data_path}")
         self.dataset = self.prepare_dataset()
+        if self.args.device_data:
+            self._setup_device_data()
         batcher = EpochBatcher(self.dataset, self.args.batch_size,
                                seed=self.args.seed)
         logs = defaultdict(list)
@@ -133,11 +161,18 @@ class Trainer:
         except ValueError:  # not on the main thread
             prev_handler = None
         progress = ProgressLine(newlines=self.args.log_progress_newlines)
-        num_batches = len(batcher)
+        k = self.steps_per_call
+        self._warn_chunk_cadence(k)
+        # with K steps a call, an epoch runs the largest multiple of K
+        # batches that fits (a graph has one shape)
+        num_batches = (len(batcher) // k) * k
         if num_batches == 0:
             raise ValueError(
-                f"dataset of {len(self.dataset)} images yields no batch of "
-                f"size {self.args.batch_size}")
+                f"dataset of {len(self.dataset)} images yields "
+                f"{len(batcher)} batch(es) of size {self.args.batch_size} "
+                f"but --steps-per-call={k} needs at least {k} per epoch; "
+                "lower --steps-per-call or --batch-size (training would "
+                "otherwise run zero steps)")
         try:
             self.components.invoke("train_begin", self.steps, logs)
             while self.epoch <= self.args.epochs:
@@ -147,22 +182,40 @@ class Trainer:
                     "epoch_begin", self.steps, self.epoch, logs)
                 progress.epoch_begin(self.epoch, num_batches)
                 epoch_batches = 0
-                for batch in prefetch_to_device(batcher.epoch(), self.device):
+                if self.args.device_data:
+                    # batches are gathered on the device, in the step
+                    batch_iter = iter([None] * (num_batches // k))
+                elif k > 1:
+                    # K host batches stacked: one copy a call
+                    batch_iter = prefetch_to_device(
+                        stack_batches(batcher.epoch(), k), self.device)
+                else:
+                    batch_iter = prefetch_to_device(batcher.epoch(),
+                                                    self.device)
+                for batch in batch_iter:
                     self.components.invoke("batch_begin", self.steps, logs)
                     training_metrics = self.train_batch(batch)
                     for name, value in training_metrics.items():
                         logs[name].append(value)
                     self.components.invoke("batch_end", self.steps, logs)
-                    epoch_batches += 1
+                    epoch_batches += k
+                    li = self.args.log_iters
+                    # the call [steps, steps + K) crosses a multiple of
+                    # log_iters (steps % log_iters == 0 at K == 1)
                     if (not self.args.quiet_logs
-                            and self.steps % self.args.log_iters == 0):
+                            and (self.steps + k - 1) // li
+                            > (self.steps - 1) // li):
                         progress.update(self.steps, epoch_batches,
                                         self.args.batch_size,
                                         training_metrics)
-                    self.steps += 1
+                    self.steps += k
                 progress.epoch_end()
                 self.components.invoke(
                     "epoch_end", self.steps, self.epoch, logs)
+                if (self.epoch == 1 and self.args.cache_dataset
+                        and hasattr(self.dataset, "save_cache")):
+                    self.dataset.save_cache(
+                        self.dataset_cache_path(self.g.max_size))
                 self.epoch += 1
         except KeyboardInterrupt:
             pass
@@ -172,9 +225,18 @@ class Trainer:
         self.components.invoke("train_end", self.steps, logs)
 
     def train_batch(self, batch):
-        """One train step on a uint8 device batch; lazy R1 alternates the
-        two steps on the global step count, as the JAX trainer does.
-        Returns 0-d device tensors, with no host sync here."""
+        """One call: a train step on a uint8 device batch, or K steps
+        (``--steps-per-call``) on stacked (K, B, ...) batches; ``batch`` is
+        None under ``--device-data``, where each step gathers its own. Lazy
+        R1 alternates the two steps on the global step count, as the JAX
+        trainer does. Returns device tensors, 0-d or stacked (K,), with no
+        host sync here."""
+        if self.steps_per_call > 1:
+            return self._train_chunk(batch)
+        if batch is None:
+            idx, ys, xs = self._draw_device_data(1)
+            batch = gather_crop(self._archive, idx[0], ys[0], xs[0],
+                                self._crop)
         lazy_off = (self._r1_interval > 1
                     and self.steps % self._r1_interval != 0)
         fn = self._train_step_alt if lazy_off else self._train_step
@@ -182,6 +244,66 @@ class Trainer:
         z_d = torch.stack([self.sample_z(n) for _ in range(self.args.iters_d)])
         z_g = self.sample_z(n)
         return fn(self.state, batch, z_d, z_g)
+
+    def _draw_device_data(self, k):
+        n, h, w, _ = self._archive.shape
+        return draw(n, h, w, self._crop, self.args.batch_size, self.z_gen,
+                    k)
+
+    def _train_chunk(self, batch):
+        """K steps in one call, fed the draws of all K steps, made here
+        outside the call (``train/multi.py``)."""
+        if self._chunk_call is None:
+            self._chunk_call = self.make_chunk_call(batch is None)
+        inputs = self._archive if batch is None else batch
+        return self._chunk_call(self.state, inputs, self.steps,
+                                **self.chunk_draws(batch is None))
+
+    def chunk_draws(self, device_data: bool) -> dict:
+        """Every random draw of one K-step call, on the device: the latents
+        ``z_d`` (K, iters_d, B, latent) and ``z_g`` (K, B, latent) and, from
+        the device archive, the rows ``idx`` and crop offsets ``ys``, ``xs``
+        (K, B)."""
+        k, b = self.steps_per_call, self.args.batch_size
+        latent = self.gan_config.latent_dims
+        draws = {}
+        if device_data:
+            draws.update(zip(("idx", "ys", "xs"), self._draw_device_data(k)))
+        draws["z_d"] = torch.randn((k, self.args.iters_d, b, latent),
+                                   generator=self.z_gen, device=self.device)
+        draws["z_g"] = torch.randn((k, b, latent), generator=self.z_gen,
+                                   device=self.device)
+        return draws
+
+    def make_chunk_call(self, device_data: bool):
+        """The K-step call: ``chunk_train_step`` over the train step (and
+        its lazy-R1 alternate), in 'broadcast' mode over the device archive
+        or 'scan' over stacked host batches; a ``GraphedChunk`` of it on
+        CUDA, itself (eager) elsewhere."""
+        step, alt = self._train_step, self._train_step_alt
+        if device_data:
+            step = wrap_step_with_device_data(step, self._crop)
+            if alt is not None:
+                alt = wrap_step_with_device_data(alt, self._crop)
+        multi = chunk_train_step(
+            step, self.steps_per_call, "broadcast" if device_data else "scan",
+            alt_step_fn=alt, alt_interval=self._r1_interval)
+        if self.device.type != "cuda":
+            return multi
+        return GraphedChunk(multi)
+
+    def _warn_chunk_cadence(self, k):
+        """--steps-per-call moves the step counter K at a time; component
+        frequencies that aren't multiples of K can only fire late (on the
+        next call boundary). Say so once."""
+        if k <= 1:
+            return
+        for flag in ("log_iters", "gen_freq", "checkpoint_freq", "fid_freq"):
+            freq = getattr(self.args, flag, None)
+            if freq and freq % k:
+                print(f"warning: --{flag.replace('_', '-')}={freq} is not a "
+                      f"multiple of --steps-per-call={k}; it will fire on "
+                      f"chunk boundaries only")
 
     # ------------------------------------------------------------- sampling
     def sample_z(self, n=None):
@@ -263,6 +385,10 @@ class Trainer:
         from .components.model_checkpoint import ModelCheckpointComponent
         classes = [ImageSamplerComponent, ModelCheckpointComponent]
 
+        if args.profile_dir or args.timing:
+            from .components.profiler import ProfilerComponent
+            classes.append(ProfilerComponent)
+
         if args.fid:
             from .components.metrics.fid import FIDComponent
             classes.append(FIDComponent)
@@ -323,7 +449,7 @@ class Trainer:
                             "to the run will be appended.")
         p.add_argument("--dataset-cache", default="cache/{root}_{size}.pkl",
                        help="Location of dataset cache for the folder "
-                            "dataset (not ported yet)")
+                            "dataset ({root}: md5 of the folder's path)")
         p.add_argument("--grad-penalty", type=float, default=5.0,
                        help="R1 gradient penalty weight on real data")
         p.add_argument("--config", default="64",
@@ -331,15 +457,15 @@ class Trainer:
         p.add_argument("--model-scale", type=float, default=1.0,
                        help="Multiply all layer widths by this factor")
         p.add_argument("--cache-dataset", action="store_true",
-                       help="Cache the folder dataset (not ported yet; no "
-                            "effect on an archive)")
+                       help="Cache the folder dataset after the first "
+                            "epoch (no effect on an archive)")
         p.add_argument("--g-base", default="mlp",
                        help="Generator latent input: 'mlp' or 'tiledz'")
         p.add_argument("--norm", default="bn",
                        help="Normalization: 'bn' (batchnorm) or 'id'")
         p.add_argument("--activation", default="relu",
-                       help="Activation: 'relu' or 'elu' ('selu' is not "
-                            "ported yet)")
+                       help="Activation: 'relu', 'elu' or 'selu' (selu "
+                            "re-initializes G and D for it)")
         p.add_argument("--quiet-logs", action="store_true",
                        help="Reduce log output")
         p.add_argument("--log-iters", type=int, default=100,
@@ -354,9 +480,10 @@ class Trainer:
         p.add_argument("--fid", action="store_true",
                        help="Calculate FID test metric")
         p.add_argument("--profile-dir", type=type_or_none(str), default=None,
-                       help="Capture a device trace (not ported yet)")
+                       help="Write a torch.profiler trace of steps "
+                            "[--profile-start, +--profile-steps) here")
         p.add_argument("--timing", action="store_true",
-                       help="Log images/sec throughput (not ported yet)")
+                       help="Log images/sec throughput")
         p.add_argument("--r1-interval", type=int, default=1,
                        help="Lazy R1 regularization: apply the R1 "
                             "double-backward every N steps with weight "
@@ -374,10 +501,11 @@ class Trainer:
                        help="Parity-domain tower blocks; auto = off here "
                             "(the JAX package's rule off a TPU)")
         p.add_argument("--steps-per-call", type=int, default=1,
-                       help="Train steps per call (only 1 is ported)")
+                       help="Train steps per call: K > 1 replays a "
+                            "captured CUDA graph of K steps on the card")
         p.add_argument("--device-data", action="store_true",
-                       help="Keep the archive on the device (not ported "
-                            "yet)")
+                       help="Keep the archive on the device; each step "
+                            "gathers and crops its batch there")
         p.add_argument("--dtype", default="auto",
                        choices=["auto", "bf16", "f32"],
                        help="Compute dtype (params always f32); auto = f32 "

@@ -578,3 +578,245 @@ def test_parity_kernels_reject_other_dtypes(cuda):
     w = torch.zeros(3, 8, 3, 3, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         merged_tap_conv(x, w, 3, "up")
+
+
+# ------------------------------------------- K-step calls as CUDA graphs
+def _graph_trainer(tmp_path, dtype, device_data):
+    """'test128' (attention in G and D: K1, K2) with --parity-blocks on and
+    FUSED_G (K3 in G's parity blocks), B 8, two steps a call, lazy R1 every
+    2 steps, on a 24-image archive of 160 px (a crop per image)."""
+    import numpy as np
+
+    from tartangan_torch.ops import parity as P
+    from tartangan_torch.train.cnn import CNNTrainer
+    P.FUSED_G = True
+    images = np.random.default_rng(0).integers(0, 256, (24, 160, 144, 3),
+                                               dtype=np.uint8)
+    np.save(tmp_path / "data.npy", images)
+    trainer = CNNTrainer.create_from_cli([
+        str(tmp_path / "data.npy"), "--config", "test128", "--batch-size",
+        "8", "--epochs", "1", "--output", str(tmp_path / "out"), "--run-id",
+        "g", "--dtype", dtype, "--quiet-logs", "--device", "cuda",
+        "--parity-blocks", "on", "--steps-per-call", "2", "--r1-interval",
+        "2", "--gen-freq", "100", *(["--device-data"] if device_data
+                                     else [])])
+    trainer.train()
+    return trainer
+
+
+def _chunk_inputs(trainer, device_data, gen):
+    """One call's inputs (the device archive, or stacked random crops) and
+    its draws, as the trainer makes them."""
+    draws = trainer.chunk_draws(device_data)
+    if device_data:
+        return trainer._archive, draws
+    k, b = trainer.steps_per_call, trainer.args.batch_size
+    crops = torch.randint(0, 256, (k, b, 128, 128, 3), generator=gen,
+                          device=trainer.device, dtype=torch.uint8)
+    return crops, draws
+
+
+def _run_call(state, fn, inputs, step0, draws, tensors, start):
+    """The state put back at ``start``, one call through ``fn``; its
+    metrics, the state by group and Adam's step counts (clones)."""
+    with torch.no_grad():
+        for t, s0 in zip(tensors, start):
+            t.copy_(s0)
+    metrics = fn(state, inputs, step0, **draws)
+    return ({k: v.clone() for k, v in metrics.items()},
+            {name: [t.detach().clone() for t in ts]
+             for name, ts in _state_groups(state).items()},
+            [o.state[p]["step"].clone() for o in (state.opt_g, state.opt_d)
+             for p in o.state])
+
+
+def _errors(run, ref, before):
+    """``run`` against ``ref`` (each a ``_run_call``): the losses' largest
+    relative error; each parameter group's error in the norm of its change
+    from ``before`` over that norm; the other groups' max abs error over
+    their max-abs."""
+    errs = {"losses": max(float(((run[0][k] - ref[0][k]).abs()
+                                 / ref[0][k].abs()).max()) for k in ref[0])}
+    for name, group in ref[1].items():
+        if name in before:
+            norms = [float(torch.cat([(a - b).flatten().double() for a, b in
+                                      zip(r, before[name])]).norm())
+                     for r in (run[1][name], group)]
+            errs[name] = abs(norms[0] - norms[1]) / (norms[1] or 1.0)
+        else:
+            scale = max(float(t.abs().max()) for t in group) or 1.0
+            errs[name] = max(float((a - b).abs().max())
+                             for a, b in zip(run[1][name], group)) / scale
+    return errs
+
+
+def _equal(a, b):
+    return (all(torch.equal(a[0][k], b[0][k]) for k in b[0])
+            and all(torch.equal(x, y) for k in b[1]
+                    for x, y in zip(a[1][k], b[1][k]))
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_data", [True, False],
+                         ids=["broadcast", "scan"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_graph_replay_matches_eager(cuda, tmp_path, dtype, device_data):
+    """The trainer's own K = 2 call (both R1 patterns; the second captured
+    here, by the trainer's call) replayed against the same call run
+    eagerly, from one state and one set of draws, as ``chip_smoke.py``'s
+    ``hold_graph``. At the training rates: equal bit for bit, or else a
+    second eager run differs from the first too and the losses and each
+    parameter group's change (in norm, and it moved) are within 1e-2
+    relative (float32's atomic sums differ from run to run, and Adam with
+    beta1 = 0 moves a weight whose gradient is near 0 by +-lr on the sign
+    of that noise). With both rates 0 (the device tensors the graph
+    reads): losses 1e-4 relative, statistics, the EMA target and Adam's
+    moments 1e-3 of each group's max-abs, and the losses farther than 1e-2
+    from the trained call's. Adam's step counts equal throughout."""
+    from tartangan_torch.ops.attention import attention
+    from tartangan_torch.ops.parity_conv import merged_tap_conv
+    from tartangan_torch.train.multi import GraphedChunk, state_tensors
+    before = (attention.launches, merged_tap_conv.launches)
+    trainer = _graph_trainer(tmp_path, dtype, device_data)
+    assert isinstance(trainer._chunk_call, GraphedChunk)
+    assert len(trainer._chunk_call.graphs) == 1  # the one call, steps 0-1
+    assert attention.launches > before[0]
+    assert merged_tap_conv.launches > before[1]
+    state, own = trainer.state, trainer._chunk_call
+    groups = [g for o in (state.opt_g, state.opt_d) for g in o.param_groups]
+    rates = [float(g["lr"]) for g in groups]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tensors = state_tensors(state)
+    start = [t.detach().clone() for t in tensors]
+    params = {name: [t.detach().clone() for t in ts]
+              for name, ts in _state_groups(state).items()
+              if name in ("g_target", "g params", "d params")}
+    for step0 in (trainer.steps, trainer.steps + 1):
+        inputs, draws = _chunk_inputs(trainer, device_data, gen)
+        args = (inputs, step0, draws, tensors, start)
+        graph = _run_call(state, own, *args)
+        eager = _run_call(state, own.multi_step, *args)
+        if not _equal(graph, eager):
+            assert not _equal(_run_call(state, own.multi_step, *args), eager)
+            errs = _errors(graph, eager, params)
+            for name in ["losses", *params]:
+                assert errs[name] <= 1e-2, (name, errs)
+        for name in params:
+            assert not all(torch.equal(a, b) for a, b in
+                           zip(eager[1][name], params[name])), name
+        assert all(torch.equal(a, b) for a, b in zip(graph[2], eager[2]))
+        for group in groups:
+            group["lr"].fill_(0.0)
+        graph0 = _run_call(state, own, *args)
+        eager0 = _run_call(state, own.multi_step, *args)
+        for group, rate in zip(groups, rates):
+            group["lr"].fill_(rate)
+        torch.cuda.synchronize()
+        for name in eager0[0]:
+            torch.testing.assert_close(graph0[0][name], eager0[0][name],
+                                       rtol=1e-4, atol=1e-6)
+        errs0 = _errors(graph0, eager0, params)
+        assert all(v <= 1e-3 for v in errs0.values()), errs0
+        assert _errors(eager0, eager, {})["losses"] > 1e-2
+        assert all(torch.equal(a, b) for a, b in zip(graph0[2], eager0[2]))
+    assert len(own.graphs) == 2
+
+
+def _state_groups(state):
+    """Parameters, statistics and Adam's moments of G and D, and the EMA
+    target's parameters, each a group compared at its own max-abs."""
+    groups = {"g_target": list(state.g_target.parameters())}
+    for name in ("g", "d"):
+        m, opt = getattr(state, name), getattr(state, f"opt_{name}")
+        groups[f"{name} params"] = list(m.parameters())
+        groups[f"{name} stats"] = list(m.buffers())
+        for key in ("exp_avg", "exp_avg_sq"):
+            groups[f"{name} {key}"] = [opt.state[p][key]
+                                       for p in m.parameters()]
+    return groups
+
+
+@pytest.mark.cuda
+def test_graph_call_does_not_sync(cuda, tmp_path):
+    """After its capture, a --device-data call (draws, replay, metrics)
+    makes no host synchronization and no host-to-device copy."""
+    trainer = _graph_trainer(tmp_path, "bf16", True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = trainer.train_batch(None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["g_loss"]).all()
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda):
+    """A call whose step cannot be captured (a host readback) raises; it
+    does not fall back to running eagerly."""
+    from tartangan_torch.train.multi import GraphedChunk, chunk_train_step
+    from tartangan_torch.train.state import GANTrainState
+
+    lin = torch.nn.Linear(4, 4).to(cuda)
+    opt = torch.optim.Adam(lin.parameters(), capturable=True)
+    state = GANTrainState(g=lin, g_target=lin, d=lin, opt_g=opt, opt_d=opt)
+
+    def step(state, batch):
+        loss = state.g(batch).square().mean()
+        return {"loss": loss, "host": torch.tensor(loss.item())}
+
+    call = GraphedChunk(chunk_train_step(step, 2, "scan"))
+    with pytest.raises(RuntimeError, match="capture"):
+        call(state, torch.ones((2, 3, 4), device=cuda))
+
+
+@pytest.mark.cuda
+def test_capturable_adam_matches_plain(cuda):
+    """``make_adam`` on CUDA parameters is capturable (the optimizer of
+    every CUDA run); over 3 steps its parameters, moments and step counts
+    equal torch's Adam with ``capturable=False`` (the form the CPU tests
+    hold against optax) within a few float32 ulps, eagerly and replayed
+    from a captured graph."""
+    from tartangan_torch.train.common import make_adam
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(64, 32, 3, 3), (64,), (256, 128)]
+    base = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    grads = [[1e-3 * torch.randn(s, generator=gen, device=cuda)
+              for s in shapes] for _ in range(3)]
+    lr = 4e-4
+    runs = []
+    for mode in ("plain", "eager", "graph"):
+        ps = [b.clone().requires_grad_() for b in base]
+        if mode == "plain":
+            opt = torch.optim.Adam(ps, lr=lr, betas=(0.0, 0.999), eps=1e-8,
+                                   capturable=False)
+        else:
+            opt = make_adam(ps, lr)
+            assert opt.defaults["capturable"]
+        for p, g in zip(ps, grads[0]):
+            p.grad = g.clone()
+        if mode == "graph":
+            opt.step()  # the state exists before the capture
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                opt.step()
+            for gs in grads[1:]:
+                for p, g in zip(ps, gs):
+                    p.grad.copy_(g)
+                graph.replay()
+        else:
+            opt.step()
+            for gs in grads[1:]:
+                for p, g in zip(ps, gs):
+                    p.grad = g.clone()
+                opt.step()
+        torch.cuda.synchronize()
+        runs.append([(p.detach(), opt.state[p]) for p in ps])
+    for run in runs[1:]:
+        for (p, st), (p0, st0) in zip(run, runs[0]):
+            torch.testing.assert_close(p, p0, rtol=1e-6, atol=1e-3 * lr)
+            for key in ("exp_avg", "exp_avg_sq"):
+                torch.testing.assert_close(st[key], st0[key], rtol=1e-6,
+                                           atol=0)
+            assert float(st["step"]) == float(st0["step"]) == 3.0

@@ -292,15 +292,8 @@ def test_trainer_losses_finite_and_stats_move(tiny_archive, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--device-data"], ["--steps-per-call", "2"], ["--num-devices", "2"],
-    ["--tp", "2"], ["--remat"], ["--profile-dir", "x"],
-    ["--timing"], ["--checkpoint-format", "orbax"],
-    ["--activation", "selu"]])
+    ["--num-devices", "2"], ["--tp", "2"], ["--remat"],
+    ["--checkpoint-format", "orbax"]])
 def test_unported_flags_raise(tiny_archive, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         CNNTrainer.create_from_cli(_argv(tiny_archive, tmp_path, *flag))
-
-
-def test_directory_data_path_raises(tmp_path):
-    with pytest.raises(NotImplementedError):
-        CNNTrainer.create_from_cli(_argv(str(tmp_path), tmp_path / "o"))
