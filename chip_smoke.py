@@ -150,7 +150,7 @@ printing a result:
    ``set_sync_debug_mode("error")`` and a profiled one with no
    host-to-device copy. Then '128' timed three ways in each dtype (the
    host archive at K = 1 with its pinned copy, ``--device-data`` at K = 1,
-   and at K = 4 replayed; float32 once, bfloat16 3 times in turns): per
+   and at K = 4 replayed; float32 once, bfloat16 twice in turns): per
    step, images/s, and from one more unit the peak memory with the
    graph's pool and the idle share (eager: a profile, with host launch
    calls; a replay: CUDA events). Then the '512thin' parity path of phase
@@ -163,9 +163,39 @@ printing a result:
    device kernels, three ``images_per_sec``) and one step with
    ``--activation selu``.
 
+12. remat, '1024', IQN and InfoGAN. With phase 4: K1 and K2 at config
+   '1024''s attention shapes (G: B 16, Lq 4096, Lk 1024, Ck 32, Cv 128;
+   D: Lq 1024, Lk 256), float32 and bfloat16, held against their plain
+   versions with phase 3's tolerances, K1's lse too, the two Functions to
+   second order at the D shape, and timed as phase 4 times them. After
+   phase 11: '1024' at full width, B 16, ``--dtype bf16``, R1 every step,
+   on a synthetic 1024x1024 archive of 64 tartans, 2 steps each through
+   ``create_from_cli`` and ``.train()`` (interrupted after the second, as
+   Ctrl-C ends a run) without remat and with ``--remat`` under 'full',
+   'convs' and 'dots': finite losses, K1/K2 launches a step (the counts
+   set to 0 before each run), peak memory, step time, images/s, and the
+   first step's losses within TOL_REMAT_LOSS of the run without remat;
+   then the largest batch of {32, 48, 64} that 'convs' is reckoned to fit
+   from its B 16 peak (FIT_SHARE of the card), 2 steps at it. Then
+   ``--remat`` with K3 inside ('512thin', the parity path of phase 7,
+   float32, B 64): a step without remat twice (the witness), with
+   'convs' and with 'full', from one state, batch and latents: losses,
+   gp and gradients held as phase 7 holds them, running statistics equal
+   bit for bit, K3 16 launches a step under 'convs' as without remat and
+   more under 'full'; then ``--remat convs --steps-per-call 2
+   --device-data`` in bfloat16, its graph held against eager
+   (``hold_graph``). Then the IQN and InfoGAN trainers, '512thin' B 64
+   bfloat16, 3 steps each through the entry points: finite losses (and
+   code losses), K1/K2 launches a step, the checkpoint's JAX layout, the
+   serve app on the IQN run; the bfloat16 step timed; a float32 step with
+   the kernels held against one with the plain attention (phase 6's
+   tolerances); one IQN call of 2 steps replayed (taus drawn outside the
+   graph) and held against eager.
+
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
-``shape_d`` and K1's serving shapes under ``shape_serve``; K3-K5's times
+``shape_d``, K1's serving shapes under ``shape_serve`` and config
+'1024''s shapes in both dtypes under ``shape_1024``; K3-K5's times
 summed over the launches of one G forward; each record's ``dtypes`` and,
 under ``bf16``, its bfloat16 numbers and the bfloat16 parity path's
 launches),
@@ -577,12 +607,13 @@ def check_attention_bwd(dev):
     return worst
 
 
-def check_double_backward(dev):
+def check_double_backward(dev, shape=(64, 1024, 256, 8, 32)):
     """First- and second-order gradients of sum(dq^2)-style scalars through
-    the two Functions against autograd through attention_plain, at the
-    '512thin' discriminator's training shape."""
+    the two Functions against autograd through attention_plain, at a
+    discriminator's training shape (B, Lq, Lk, Ck, Cv): '512thin''s, or
+    '1024''s (phase 12)."""
     from tartangan_torch.ops.attention import attention, attention_plain
-    b, lq, lk, ck, cv = 64, 1024, 256, 8, 32
+    b, lq, lk, ck, cv = shape
 
     def grads(fn):
         gen = torch.Generator(device=dev).manual_seed(6)
@@ -1101,26 +1132,32 @@ def run_training(archive, batch_size):
     return trainer, launches, peak
 
 
-def hold_step(trainer, dev):
+def hold_step(trainer, dev, batch=None):
     """One step with the kernels against one with the plain attention,
-    from the same fresh state, batch and latents. D's learning rate is 0
-    in both: Adam's first step (beta1 = 0) moves each weight by about
+    from the same fresh state, batch and draws (the latents, and a
+    subclass's ``extra_draws``: the IQN trainer's taus). D's learning rate
+    is 0 in both: Adam's first step (beta1 = 0) moves each weight by about
     +-lr*sign(g), so a gradient near 0 may flip its sign between two
     correct runs and hand the G step two D's 2*lr apart; with lr 0 the G
-    step sees one D, and the comparison is of gradients, not weights."""
+    step sees one D, and the comparison is of gradients, not weights.
+    Returns the batch, the latents and the extra draws."""
     b = trainer.args.batch_size
-    batch = torch.from_numpy(trainer.dataset.images[:b]).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    latent = trainer.gan_config.latent_dims
-    z_d = torch.randn((1, b, latent), generator=gen, device=dev)
-    z_g = torch.randn((b, latent), generator=gen, device=dev)
+    if batch is None:
+        batch = torch.from_numpy(trainer.dataset.images[:b]).to(dev)
+    if getattr(trainer, "state", None) is None:
+        trainer.build_models()
+    trainer.z_gen.manual_seed(7)
+    z_d = trainer.draw_z((1, b))
+    z_g = trainer.draw_z((b,))
+    extra = trainer.extra_draws((), b)
     results = []
     for use_kernel in (True, False):
         trainer.build_models()  # the same seeded init each time
         for group in trainer.state.opt_d.param_groups:
             group["lr"] = 0.0
         set_attention_kernel(trainer, use_kernel)
-        metrics = trainer._train_step(trainer.state, batch, z_d, z_g)
+        metrics = trainer._train_step(trainer.state, batch, z_d, z_g,
+                                      **extra)
         s = trainer.state
         grads = {name: [opt.state[p]["exp_avg"] for p in model.parameters()]
                  for name, model, opt in (("g", s.g, s.opt_g),
@@ -1141,7 +1178,7 @@ def hold_step(trainer, dev):
             f"(tolerance {TOL_STEP_GRAD})")
         for a, r in zip(g_k[name], g_p[name]):
             torch.testing.assert_close(a / scale, r / scale, **TOL_STEP_GRAD)
-    return batch, z_d, z_g
+    return batch, z_d, z_g, extra
 
 
 def time_train(trainer, batch, z_d, z_g):
@@ -1160,13 +1197,13 @@ def time_train(trainer, batch, z_d, z_g):
     once(True)
     once(False)
     kernel, plain = [], []
-    for _ in range(4):
+    for _ in range(2):  # 2 in turns: the whole smoke keeps its time limit
         kernel.append(once(True))
         plain.append(once(False))
     set_attention_kernel(trainer, True)
     b = batch.shape[0]
     log(f"time train step '512thin' B{b} float32 (host clock, synchronized, "
-        f"4 each in turns after warm-up): kernel median "
+        f"2 each in turns after warm-up): kernel median "
         f"{statistics.median(kernel):.3f} ms {[round(t, 3) for t in kernel]}"
         f"; plain attention median {statistics.median(plain):.3f} ms "
         f"{[round(t, 3) for t in plain]}")
@@ -1202,7 +1239,8 @@ def parity_trainer(argv, fused=True):
                 input_factory=F.g_input_factory(a.g_base, a.activation),
                 block_factory=F.g_block_factory(
                     a.norm, a.activation, fused=fused,
-                    parity=F.resolve_parity(a.parity_blocks)),
+                    parity=F.resolve_parity(a.parity_blocks),
+                    remat=a.remat, remat_policy_name=a.remat_policy),
                 output_factory=F.g_output_factory(a.norm, a.activation),
                 dtype=self.dtype)
 
@@ -1655,13 +1693,13 @@ def time_parity_step(trainer, plain, batch, z_d, z_g):
     once(trainer, uncached=True)
     once(plain)
     par, pl, cp, unc = [], [], [], []
-    for _ in range(3):
+    for _ in range(2):  # 2 in turns: the whole smoke keeps its time limit
         pl.append(once(plain))
         par.append(once(trainer))
         cp.append(once(trainer, copies=True))
         unc.append(once(trainer, uncached=True))
     log(f"time train step '512thin' B{batch.shape[0]} float32 (host clock, "
-        f"synchronized, 3 each in turns after warm-up): parity path "
+        f"synchronized, 2 each in turns after warm-up): parity path "
         f"(--parity-blocks on, FUSED_G, fused G blocks) median "
         f"{statistics.median(par):.3f} ms {[round(t, 3) for t in par]}; "
         f"plain path median {statistics.median(pl):.3f} ms "
@@ -2716,13 +2754,14 @@ def hold_parity_bf16(par16, init, batch, z_d, z_g, exact):
     return failed
 
 
-def time_steps(label, trainers, batch, z_d, z_g, reps=3):
+def time_steps(label, trainers, batch, z_d, z_g, reps=3, extra=None):
     """Each trainer's step in turns (host clock, synchronized, after a
     warm-up), its peak device memory and a profile (device time by kernel,
-    idle share). Returns {name: median ms}."""
+    idle share); ``extra`` the step's other draws (the IQN step's taus).
+    Returns {name: median ms}."""
     def once(t):
         t0 = time.perf_counter()
-        t._train_step(t.state, batch, z_d, z_g)
+        t._train_step(t.state, batch, z_d, z_g, **(extra or {}))
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
     for t in trainers.values():
@@ -3569,7 +3608,7 @@ def phase_dispatch(archive, smi):
 
     # times: the host archive at K = 1, --device-data at K = 1 and K = 4;
     # float32 once (its turns differed by under 0.1 %), bfloat16 3 turns
-    for dtype, reps in (("f32", 1), ("bf16", 3)):
+    for dtype, reps in (("f32", 1), ("bf16", 2)):
         t1 = dispatch_trainer(big, f"k1_{dtype}", "--dtype", dtype,
                               "--device-data", "--epochs", "0")
         t1.train()
@@ -3647,7 +3686,7 @@ def phase_dispatch(archive, smi):
         "'512thin' parity bf16", {
             "device archive K1": (parity_k1, 2, None),
             "device archive K2 graph": (lambda: t.train_batch(None), 2,
-                                        t._chunk_call._pool)}, 64, 3)
+                                        t._chunk_call._pool)}, 64, 2)
     del t, t1
     gc.collect()
     torch.cuda.empty_cache()
@@ -3692,6 +3731,424 @@ def phase_dispatch(archive, smi):
     return results
 
 
+# --------------------------------------------------------------- phase 12
+P12_DIR = ROOT / "build" / "chip_smoke_p12"
+# config '1024''s attention (blocks 512-512-512-256-128-64-32-16, attention
+# after block 3: heads Ck 32, Cv 128): G at 64x64 (Lq 4096, Lk 1024), D at
+# 32x32 (Lq 1024, Lk 256); B 16, the batch of phase 12's '1024' runs
+SHAPES_1024 = (("G", 16, 4096, 1024, 32, 128), ("D", 16, 1024, 256, 32, 128))
+# the first step's losses of '1024' with --remat (each policy) against the
+# run without: the four runs start from one seeded state, batch and draws
+# and compute the same forward; the gradients differ by the order of the
+# float32 atomic sums in the backward (cuDNN, the bilinear backward), which
+# bfloat16 rounding magnifies, and G's loss reads D's update of the step
+TOL_REMAT_LOSS = dict(rtol=1e-2, atol=1e-3)
+# the largest batch that '1024' with --remat convs is reckoned to fit:
+# the train state plus the batch times the working memory an image of the
+# B 16 run took, at most this share of the card's memory
+FIT_SHARE = 0.85
+
+
+def phase_1024_kernels(dev):
+    """K1 and K2 at config '1024''s attention shapes (B 16), in float32 and
+    bfloat16: each against its plain version with phase 3's tolerances (K2
+    fed K1's o and lse, each gradient over its max-abs), K1's lse against
+    the plain forward's, the two Functions to second order at the D shape
+    (float32), then timed as phase 4 times them: the kernel's device time
+    (profiler), the wrapper's call (CUDA events), the plain version, SDPA
+    (and its backward) and the bound. Returns {name: {"G float32": record,
+    ...}}, the kernels line's ``shape_1024``."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops.attention import (_bwd, _fwd,
+                                               attention_bwd_plain,
+                                               attention_lse_plain,
+                                               attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {"attention_fwd": {}, "attention_bwd": {}}
+    for label, b, lq, lk, ck, cv in SHAPES_1024:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(s, device=dev, generator=gen).to(dtype)
+                           for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
+                                     (b, lq, cv)))
+            o, lse = _fwd(q, k, v, with_lse=True)
+            ref = attention_plain(q, k, v)
+            torch.testing.assert_close(o.float(), ref.float(), **TOL[dtype])
+            torch.testing.assert_close(lse, attention_lse_plain(q, k),
+                                       **TOL[torch.float32])
+            err1 = (o.float() - ref.float()).abs().max().item()
+            err2 = 0.0
+            for a, r in zip(_bwd(q, k, v, do, o, lse),
+                            attention_bwd_plain(q, k, v, do)):
+                scale = r.float().abs().max()
+                torch.testing.assert_close(a.float() / scale,
+                                           r.float() / scale, **TOL[dtype])
+                err2 = max(err2, (a.float() - r.float()).abs().max().item())
+            del ref
+            bf = dtype == torch.bfloat16
+            size, peak = (2, PEAK_BF16_FLOPS) if bf else (4, PEAK_F32_FLOPS)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+            def k1():
+                return _fwd(q, k, v, with_lse=True)
+
+            def k2():
+                return _bwd(q, k, v, do, o, lse)
+            shape = f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}"
+            for name, fn, events, plain, lib, bound, err, iters in (
+                    ("attention_fwd", k1, K1_EVENTS,
+                     lambda: attention_plain(q, k, v),
+                     lambda: F.scaled_dot_product_attention(q, k, v,
+                                                            scale=1.0),
+                     attention_bound_ms(b, lq, lk, ck, cv, size, peak=peak),
+                     err1, 20),
+                    ("attention_bwd", k2, K2_EVENTS,
+                     lambda: attention_bwd_plain(q, k, v, do),
+                     lambda: torch.autograd.grad(sdpa, leaves, do,
+                                                 retain_graph=True),
+                     attention_bound_ms(b, lq, lk, ck, cv, size,
+                                        backward=True, peak=peak),
+                     err2, 5)):
+                rec = {"shape": shape,
+                       "ms": statistics.median([device_ms(fn, events)
+                                                for _ in range(2)]),
+                       "call_ms": cuda_ms(fn, iters=iters),
+                       "plain_ms": cuda_ms(plain, iters=iters),
+                       "library_ms": cuda_ms(lib, iters=iters),
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "max_abs_err": err}
+                out[name][f"{label} {str(dtype)[6:]}"] = rec
+                log(f"time {name} '1024' {label} {shape} {str(dtype)[6:]}: "
+                    f"held against the plain version (max_abs_err "
+                    f"{err:.3e}, tolerance {TOL[dtype]}"
+                    f"{' over max-abs' if name == 'attention_bwd' else ''});"
+                    f" kernel device {rec['ms']:.4f} ms (profiler), call "
+                    f"{rec['call_ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                    f"ms, sdpa{' backward' if name == 'attention_bwd' else ''}"
+                    f" {rec['library_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+                    f"({bound[1]}); kernel at "
+                    f"{100 * bound[0] / rec['ms']:.1f} % of the bound")
+            del q, k, v, do, o, lse, leaves, sdpa
+    check_double_backward(dev, SHAPES_1024[1][1:])
+    return out
+
+
+def run_counted(trainer, label, stop=None):
+    """``trainer.train()`` with the K1/K2 launch counts set to 0 just
+    before and read just after; each step synchronized and timed (host
+    clock). With ``stop``, the run is interrupted before step ``stop`` as
+    Ctrl-C interrupts it (the trainer's graceful end: samples and the
+    final checkpoint). Returns (per-step (K1, K2) launches, per-step ms,
+    wall s, peak device memory, device memory held after the run: the
+    train state)."""
+    from tartangan_torch.ops.attention import attention as k1
+    from tartangan_torch.ops.attention import attention_bwd as k2
+    per_step, times = [], []
+    train_batch = trainer.train_batch
+
+    def counted(batch):
+        if len(per_step) == stop:
+            raise KeyboardInterrupt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = (k1.launches, k2.launches)
+        metrics = train_batch(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((k1.launches - before[0], k2.launches - before[1]))
+        return metrics
+    trainer.train_batch = counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (k1.launches, k2.launches)
+    if 0 in launches or per_step != [(K1_PER_STEP, K2_PER_STEP)] * len(
+            per_step):
+        raise AssertionError(f"{label}: expected ({K1_PER_STEP}, "
+                             f"{K2_PER_STEP}) K1/K2 launches a step, got "
+                             f"{per_step} ({launches} in the run)")
+    return (per_step, times, wall, torch.cuda.max_memory_allocated(),
+            torch.cuda.memory_allocated())
+
+
+def finite_logs(trainer, keys, steps):
+    losses = {k: [float(v) for v in trainer.logs[k]] for k in keys}
+    for k, vals in losses.items():
+        assert len(vals) == steps and all(np.isfinite(vals)), (k, vals)
+    return losses
+
+
+def run_1024(archive, label, batch_size, *extra):
+    """'1024' at full width, bfloat16, R1 every step, through
+    ``create_from_cli`` and ``.train()``, 2 steps (interrupted after the
+    second); then one step without R1 on its state, for its peak memory."""
+    from tartangan_torch.train.cnn import CNNTrainer, make_cnn_train_step
+    out = P12_DIR / "out"
+    shutil.rmtree(out / label, ignore_errors=True)
+    trainer = CNNTrainer.create_from_cli([
+        str(archive), "--config", "1024", "--batch-size", str(batch_size),
+        "--epochs", "2", "--dtype", "bf16", "--device", "cuda",
+        "--run-id", label, "--output", str(out), "--quiet-logs",
+        "--gen-freq", "100000", *extra])
+    per_step, times, wall, peak, held = run_counted(trainer, label, stop=2)
+    assert len(per_step) == 2, per_step
+    steps = len(per_step)
+    assert trainer.gan_config.blocks == (512, 512, 512, 256, 128, 64, 32, 16)
+    losses = finite_logs(trainer, ("g_loss", "d_loss", "gp"), steps)
+    ms = times[-1]
+    # a step without R1 (a lazy-R1 run's other steps) on the same trainer:
+    # what remat does where no second-order graph is kept
+    no_r1 = make_cnn_train_step(grad_penalty=0.0,
+                                ema_factor=trainer.args.lr_target_g,
+                                dtype=trainer.dtype)
+    batch = torch.from_numpy(np.array(
+        trainer.dataset.images[:batch_size])).cuda()
+    z_d, z_g = trainer.draw_z((1, batch_size)), trainer.draw_z((batch_size,))
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    no_r1(trainer.state, batch, z_d, z_g)
+    torch.cuda.synchronize()
+    peak_no_r1 = torch.cuda.max_memory_allocated()
+    log(f"1024 {label}: B{batch_size} bfloat16, {steps} steps in {wall:.1f} s"
+        f" (host clock, sampling and the checkpoint included); step times "
+        f"{[round(t, 3) for t in times]} ms (the last: {ms:.3f} ms, "
+        f"{1e3 * batch_size / ms:.1f} images/s); losses {losses}; K1/K2 "
+        f"launches a step {per_step}; peak device memory "
+        f"{peak / 2**30:.3f} GiB, {held / 2**30:.3f} GiB held after the run "
+        f"(the train state); a step without R1: peak "
+        f"{peak_no_r1 / 2**30:.3f} GiB")
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak": peak, "held": held, "ms": ms,
+            "batch": batch_size, "peak_no_r1": peak_no_r1}
+
+
+def phase_1024():
+    """'1024' at full width, B 16, bfloat16, R1 every step, 2 steps each
+    without remat and with ``--remat`` under 'full', 'convs' and 'dots';
+    the first step's losses held against the run without remat
+    (TOL_REMAT_LOSS). Then the largest batch of {32, 48, 64} that 'convs'
+    is reckoned to fit (FIT_SHARE), 2 steps at it."""
+    from tartangan_torch.data.synthetic import make_archive
+    P12_DIR.mkdir(parents=True, exist_ok=True)
+    archive = P12_DIR / "tartans1024.npy"
+    t0 = time.perf_counter()
+    images = make_archive(64, 1024, seed=0)
+    np.save(archive, images)
+    log(f"1024: wrote a {images.shape} uint8 synthetic tartan archive in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del images
+    runs = {}
+    for way, flags in (("no remat", ()), ("remat full", ("--remat",)),
+                       ("remat convs", ("--remat", "--remat-policy",
+                                        "convs")),
+                       ("remat dots", ("--remat", "--remat-policy",
+                                       "dots"))):
+        runs[way] = run_1024(archive, way.replace(" ", "_"), 16, *flags)
+    base = runs["no remat"]["losses"]
+    for way, run in runs.items():
+        for k in base:
+            np.testing.assert_allclose(run["losses"][k][0], base[k][0],
+                                       **TOL_REMAT_LOSS, err_msg=f"{way} {k}")
+    log("1024: the first step's losses of the three --remat ways within "
+        f"{TOL_REMAT_LOSS} of the run without: "
+        + "; ".join(f"{w} {[r['losses'][k][0] for k in base]}"
+                    for w, r in runs.items()))
+    convs = runs["remat convs"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_image = (convs["peak"] - convs["held"]) / 16
+    reckon = {b: convs["held"] + b * per_image for b in (32, 48, 64)}
+    fits = [b for b, need in reckon.items() if need <= FIT_SHARE * total]
+    log(f"1024: --remat convs at B16 took {per_image / 2**30:.3f} GiB an "
+        f"image above the {convs['held'] / 2**30:.3f} GiB train state; "
+        f"reckoned peaks " + ", ".join(f"B{b} {v / 2**30:.2f} GiB"
+                                       for b, v in reckon.items())
+        + f" against {FIT_SHARE} x {total / 2**30:.2f} GiB: "
+        + (f"B{max(fits)} is the largest that fits" if fits else
+           "none fits; no larger batch is run"))
+    if fits:
+        b = max(fits)
+        big = run_1024(archive, f"remat_convs_b{b}", b, "--remat",
+                       "--remat-policy", "convs")
+        runs[f"remat convs B{b}"] = big
+        log(f"1024: --remat convs at B{b}: peak {big['peak'] / 2**30:.3f} "
+            f"GiB against the reckoned {reckon[b] / 2**30:.3f} GiB")
+    return runs
+
+
+def phase_remat_parity(archive, dev):
+    """--remat with K3 inside: '512thin' with --parity-blocks on, FUSED_G
+    and the fused G blocks (phase 7's path), float32, B 64. One step
+    without remat, again (the witness of the backward's run-to-run
+    spread), with --remat convs and with --remat full, each from the same
+    fresh state, batch and latents with D's rate 0 (``_step_grads``): the
+    losses, gp and gradients held as phase 7 holds them (``_hold``:
+    TOL_PARITY_STEP_GRAD or PARITY_WITNESS_FACTOR x the witness), the
+    running statistics equal bit for bit, K3's launches as many under
+    convs as without remat (16 a step) and more under full. Then --remat
+    convs --steps-per-call 2 in bfloat16 with --device-data: 1 call
+    trained, and its graph held against eager (``hold_graph``)."""
+    from tartangan_torch.ops import parity as P
+    P.FUSED_G = True
+    argv = [str(archive), "--config", "512thin", "--parity-blocks", "on",
+            "--batch-size", "64", "--epochs", "1", "--dtype", "f32",
+            "--device", "cuda", "--run-id", "p12_parity", "--output",
+            str(P12_DIR / "out"), "--quiet-logs"]
+    batch = torch.from_numpy(np.array(np.load(archive, mmap_mode="r")[:64])).to(
+        dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    z_d = torch.randn((1, 64, 256), generator=gen, device=dev)
+    z_g = torch.randn((64, 256), generator=gen, device=dev)
+    counters = parity_counters()
+    results = {}
+    for way, flags in (("no remat", ()), ("no remat again", ()),
+                       ("remat convs", ("--remat", "--remat-policy",
+                                        "convs")),
+                       ("remat full", ("--remat", "--remat-policy",
+                                       "full"))):
+        trainer = parity_trainer(argv + list(flags))
+        trainer.build_models()
+        for c in counters.values():
+            c.launches = 0
+        step = _step_grads(trainer, batch, z_d, z_g)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        stats = [t.clone() for m in (trainer.state.g, trainer.state.d)
+                 for t in m.buffers()]
+        results[way] = (step, stats, launches)
+        log(f"remat parity {way}: K1-K5 launches in the step {launches}")
+        del trainer
+        gc.collect()
+    base, base_stats, base_launches = results["no remat"]
+    witness, _ = _hold("remat parity: no remat, twice", results[
+        "no remat again"][0], base)
+    failed = []
+    for way in ("remat convs", "remat full"):
+        step, stats, launches = results[way]
+        _, bad = _hold(f"remat parity: {way} vs no remat", step, base,
+                       witness=witness)
+        failed += bad
+        same = all(torch.equal(a, b) for a, b in zip(stats, base_stats))
+        log(f"remat parity {way}: running statistics "
+            f"{'equal' if same else 'NOT equal'} bit for bit to the step "
+            f"without remat")
+        if not same:
+            failed.append(f"{way}: running statistics")
+    k3 = {w: r[2]["parity_conv"] for w, r in results.items()}
+    if not (k3["remat convs"] == k3["no remat"] == 16
+            and k3["remat full"] > k3["no remat"]):
+        failed.append(f"K3 launches a step {k3}: convs must make as many as "
+                      "no remat (16), full more")
+    if any(v == 0 for r in results.values() for v in r[2].values()):
+        failed.append("a kernel of the path was not launched")
+    if failed:
+        raise AssertionError(f"remat parity: {failed}")
+    log(f"remat parity: K3 launches a step {k3}")
+
+    trainer = dispatch_trainer(archive, "p12_graph", "--dtype", "bf16",
+                               "--device-data", "--steps-per-call", "2",
+                               "--remat", "--remat-policy", "convs",
+                               parity=True)
+    train_dispatch("'512thin' parity bf16 --remat convs K = 2", trainer, 1,
+                   2)
+    hold_graph("'512thin' parity bf16 --remat convs K = 2", trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_iqn_info(archive, dev):
+    """The IQN and InfoGAN trainers: '512thin' at full width, B 64,
+    bfloat16, 3 steps each through ``create_from_cli`` and ``.train()``:
+    finite losses (and code losses), K1/K2 launches a step, a final
+    checkpoint in the JAX trainers' layout; the serve app loads the IQN
+    run and generates on the card. One float32 step with the kernels held
+    against one with the plain attention from the same state and draws
+    (``hold_step``, phase 6's tolerances); the bfloat16 step timed
+    (``time_steps``). Then one IQN call of 2 steps with --device-data
+    --steps-per-call 2, its graph held against eager (``hold_graph``)."""
+    from tartangan_torch import serve
+    from tartangan_torch.train.info import InfoTrainer
+    from tartangan_torch.train.iqn import IQNTrainer
+    from tartangan_torch.utils import msgpack
+    out = P12_DIR / "out"
+    batch = torch.from_numpy(np.array(np.load(archive, mmap_mode="r")[:64])).to(
+        dev)
+    for name, cls, keys, head in (
+            ("iqn", IQNTrainer, ("g_loss", "d_loss", "gp"),
+             ("IQN_0", "to_output")),
+            ("info", InfoTrainer, ("g_loss", "g_code_loss", "d_loss",
+                                   "d_code_loss", "gp"),
+             ("LinearOutput_0", "LinearOutput_1"))):
+        shutil.rmtree(out / name, ignore_errors=True)
+        argv = [str(archive), "--config", "512thin", "--batch-size", "64",
+                "--epochs", "1", "--device", "cuda", "--output", str(out),
+                "--quiet-logs"]
+        trainer = cls.create_from_cli(argv + ["--dtype", "bf16", "--run-id",
+                                              name])
+        per_step, times, wall, peak, _ = run_counted(trainer, name)
+        losses = finite_logs(trainer, keys, 3)
+        ckpt = out / name / "checkpoints" / "3"
+        for part in ("g", "g_target", "d", "opt_g", "opt_d"):
+            assert (ckpt / f"{part}.msgpack").is_file(), part
+        d_tree = msgpack.loads((ckpt / "d.msgpack").read_bytes())
+        opt_d = msgpack.loads((ckpt / "opt_d.msgpack").read_bytes())
+        assert int(opt_d["0"]["count"]) == 3
+        assert all(h in d_tree["params"]["output_block"] for h in head)
+        log(f"{name}: '512thin' B64 bfloat16, 3 steps in {wall:.1f} s (host "
+            f"clock, sampling and the checkpoint included); losses {losses};"
+            f" K1/K2 launches a step {per_step}; step times "
+            f"{[round(t, 3) for t in times]} ms; peak device memory "
+            f"{peak / 2**30:.3f} GiB; checkpoint {ckpt} in the JAX layout "
+            f"(output_block {sorted(d_tree['params']['output_block'])})")
+        if name == "iqn":
+            app = serve._ServeApp(serve._ServeApp.parse_cli_args(
+                [str(out / name)]))
+            app.load_generator()
+            z = np.random.default_rng(8).standard_normal((2, 256)).astype(
+                np.float32)
+            imgs = app.generate(z)
+            assert imgs.shape == (2, 512, 512, 3) and np.isfinite(imgs).all()
+            log(f"iqn: the port's serve app loaded {ckpt} and generated "
+                f"{imgs.shape} on the card")
+            del app
+        trainer.build_models()
+        trainer.z_gen.manual_seed(7)
+        z_d, z_g = trainer.draw_z((1, 64)), trainer.draw_z((64,))
+        extra = trainer.extra_draws((), 64)
+        time_steps(f"'512thin' {name}", {"bfloat16": trainer}, batch, z_d,
+                   z_g, extra=extra)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        hold = cls.create_from_cli(argv + ["--dtype", "f32", "--run-id",
+                                           f"{name}_hold"])
+        hold_step(hold, dev, batch)
+        del hold
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(out / "iqn_graph", ignore_errors=True)
+    trainer = IQNTrainer.create_from_cli([
+        str(archive), "--config", "512thin", "--batch-size", "64",
+        "--epochs", "1", "--device", "cuda", "--output", str(out),
+        "--quiet-logs", "--dtype", "bf16", "--run-id", "iqn_graph",
+        "--gen-freq", "100000", "--device-data", "--steps-per-call", "2"])
+    train_dispatch("'512thin' iqn bf16 K = 2", trainer, 1, 2)
+    draws = trainer.chunk_draws(True)
+    assert draws["taus_d"].shape == (2, 1, 2, 8 * 64, 1)
+    hold_graph("'512thin' iqn bf16 K = 2", trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -3710,6 +4167,11 @@ def main():
               file=sys.stderr)
         return 1
     faulthandler.enable()  # a crash in native code prints the Python stack
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"time: {phase} done {time.perf_counter() - t_start:.1f} s "
+            "after the start")
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3744,18 +4206,22 @@ def main():
         # after which the profiler was seen to drop kernel events
         records = time_attention(dev, errs) + time_parity_kernels(dev, perrs)
         bf16 = time_bf16_kernels(dev, perrs16)
+        shape_1024 = phase_1024_kernels(dev)
+        done("phases 1-4 and 12's kernels")
         gc.collect()
         torch.cuda.empty_cache()
         app, serve_launches = phase_serve()
         check_generator(app)
         phase_times(app)
         del app
+        done("phase 5")
         trainer, launches, _ = phase_train(dev)
         log(f"serve path launches {serve_launches}; train path launches "
             f"{launches} (the kernels line counts the train path)")
-        batch, z_d, z_g = hold_step(trainer, dev)
+        batch, z_d, z_g, _ = hold_step(trainer, dev)
         time_train(trainer, batch, z_d, z_g)
         del trainer, batch
+        done("phase 6")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3778,15 +4244,28 @@ def main():
                                              "bfloat16": par16},
                    batch, z_d, z_g)
         del par, par16, plain, batch
+        done("phases 7-8")
         gc.collect()
         torch.cuda.empty_cache()
         phase_128(archive)
+        done("phase 9")
         gc.collect()
         torch.cuda.empty_cache()
         phase_eval(dev, archive, smi)
+        done("phase 10")
         gc.collect()
         torch.cuda.empty_cache()
         phase_dispatch(archive, smi)
+        done("phase 11")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        phase_1024()
+        phase_remat_parity(archive, dev)
+        phase_iqn_info(archive, dev)
+        log(f"phase 12 took {time.perf_counter() - t12:.1f} s after its "
+            f"kernels")
+        done("phase 12")
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]
@@ -3794,6 +4273,8 @@ def main():
                 else launches[name]
             rec["dtypes"] = ["float32", "bfloat16"]
             rec["bf16"] = {"launches": par16_launches[name], **bf16[name]}
+            if name in shape_1024:
+                rec["shape_1024"] = shape_1024[name]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

@@ -20,7 +20,12 @@ name unchanged), ``bn1_scale`` etc. as they are, and the ``batch_stats``
 names. The parity blocks have the plain blocks' trees.
 
 The same mapping covers the discriminator (``input_block``, ``blocks_N``,
-``output_block/Dense_0``, ``project_input``) and the Adam state: flax's
+``output_block/Dense_0``, ``project_input``), the IQN discriminator's head
+(``output_block/IQN_0/quantile_embedding/to_state`` and
+``output_block/to_output``, dense layers) and the InfoGAN discriminator's
+heads (``output_block/LinearOutput_0/Dense_0`` and ``LinearOutput_1``),
+the quantile embedding's ``BatchNorm_1`` as any ``BatchNorm_k`` wrapper,
+and the Adam state: flax's
 serializer writes optax's ``adam`` state as ``{"0": {"count": int32,
 "mu": <params tree>, "nu": <params tree>}, "1": {}}``, and torch's
 ``Adam`` keeps ``step``, ``exp_avg`` and ``exp_avg_sq`` per parameter.
@@ -43,12 +48,18 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def _is_bn(part: str) -> bool:
+    """A ``BatchNorm_k`` wrapper (``NormAct``'s ``BatchNorm_0``, the
+    quantile embedding's ``BatchNorm_0`` and ``BatchNorm_1``)."""
+    return part.startswith("BatchNorm_") and part[10:].isdigit()
+
+
 def _torch_path(path):
     out = []
     for part in path:
         if part.startswith("blocks_") and part[7:].isdigit():
             out += ["blocks", part[7:]]
-        elif part == _BN and out and out[-1] == _BN:
+        elif part == _BN and out and _is_bn(out[-1]):
             continue  # flax nests nn.BatchNorm inside the BatchNorm wrapper
         else:
             out.append(part)
@@ -99,7 +110,7 @@ def _to_tree(named_tensors) -> dict:
                 i += 2
                 continue
             path.append(parents[i])
-            if parents[i] == _BN:
+            if _is_bn(parents[i]):
                 path.append(_BN)
             i += 1
         arr = t.detach().cpu().numpy()
@@ -108,7 +119,7 @@ def _to_tree(named_tensors) -> dict:
             collection, name = "batch_stats", stats[name]
         elif name.endswith(("_mean", "_var")):  # the fused block's stats
             collection = "batch_stats"
-        elif name == "weight" and parents and parents[-1] == _BN:
+        elif name == "weight" and parents and _is_bn(parents[-1]):
             name = "scale"
         elif name == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T

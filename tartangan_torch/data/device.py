@@ -53,10 +53,11 @@ def gather_crop(archive: torch.Tensor, idx: torch.Tensor, ys: torch.Tensor,
 
 
 def wrap_step_with_device_data(train_step, s: int):
-    """A ``(state, batch_u8, z_d, z_g)`` step -> ``(state, archive, z_d,
-    z_g, idx, ys, xs)``, which gathers its batch from the archive on the
-    device first."""
-    def device_step(state, archive, z_d, z_g, idx, ys, xs):
+    """A ``(state, batch_u8, z_d, z_g, **extra)`` step -> ``(state,
+    archive, z_d, z_g, idx, ys, xs, **extra)``, which gathers its batch
+    from the archive on the device first; ``extra`` (the IQN step's taus)
+    passes through."""
+    def device_step(state, archive, z_d, z_g, idx, ys, xs, **extra):
         return train_step(state, gather_crop(archive, idx, ys, xs, s),
-                          z_d, z_g)
+                          z_d, z_g, **extra)
     return device_step

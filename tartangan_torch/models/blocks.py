@@ -7,7 +7,11 @@ Counterparts of ``tartangan_tpu/models/blocks.py``: ``GeneratorInputMLP``
 the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
 ``ParityGeneratorOutput`` (:613), ``ParityResidualDiscriminatorBlock``
 (:444) and ``ParityDiscriminatorInput`` (:664) with the folded BatchNorm
-(:233-302); and ``FusedResidualGeneratorBlock`` (:151). Attribute names
+(:233-302); ``FusedResidualGeneratorBlock`` (:151); and the IQN and
+InfoGAN discriminators' heads ``IQNDiscriminatorOutput`` (:799),
+``LinearOutput`` (:830), ``GaussianParametersOutput`` (:843),
+``MultiModelDiscriminatorOutput`` (:860), with
+``DiscriminatorPoolOnlyOutput`` (:774). Attribute names
 follow the flax param tree (``NormAct_0``, ``Conv_0``, ``project_input``,
 ...; the fused block's flat ``conv1_kernel`` ...), so a parity block has the
 plain block's tree and ``convert.py`` carries either. Every block takes
@@ -19,12 +23,14 @@ and ``Discriminator`` set, with the float32 weights cast at use
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import parity as P
 from ..ops.gblock import _gblock_reference, fused_gblock
 from ..ops.init import default_init_
 from ..ops.parity_conv import fused_parity_conv
+from ..ops.remat import checkpoint_block, tagged
 from ..ops.resize import (
     avg_pool_2x,
     downsample_bilinear_half,
@@ -33,10 +39,26 @@ from ..ops.resize import (
     upsample_nearest_2x,
 )
 from ..utils.precision import wide
+from .iqn import IQN, iqn_loss
 from .layers import BatchNorm, Conv, Dense, NormAct, activation_fn
 
 
-class ResidualGeneratorBlock(nn.Module):
+class RematBlock(nn.Module):
+    """A tower block that ``--remat`` may rematerialize: with
+    ``remat_policy`` set (``models/factories.py``), its ``block_forward``
+    runs under ``ops/remat.py::checkpoint_block``, as the JAX package wraps
+    the residual and parity blocks in ``nn.remat``. The values that
+    ``convs`` saves are the calls tagged with ``tagged`` (JAX's ``_ckpt``,
+    ``blocks.py:51-59``): the main-path convolutions."""
+
+    remat_policy = None
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        return checkpoint_block(self, self.block_forward, x, train,
+                                self.remat_policy)
+
+
+class ResidualGeneratorBlock(RematBlock):
     """Pre-activation residual up block.
 
     main: [norm, act,] conv3(in->out), norm, act, conv3(out->out)
@@ -63,7 +85,8 @@ class ResidualGeneratorBlock(nn.Module):
         if in_dims != out_dims:
             self.project_input = Conv(in_dims, out_dims, 1)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor,
+                      train: bool = True) -> torch.Tensor:
         # norm+act commute exactly with nearest upsampling (pointwise ops
         # on repeated values; the batch stats of the repeated tensor equal
         # those of the source), so they run at the small resolution, in
@@ -77,9 +100,9 @@ class ResidualGeneratorBlock(nn.Module):
             h = x
             if not self.first_block:
                 h = self.NormAct_0(h, train)
-        h = self.Conv_0(h)
+        h = tagged(self.Conv_0, h)
         h = getattr(self, self.mid_norm)(h, train)
-        h = self.Conv_1(h)
+        h = tagged(self.Conv_1, h)
         if hasattr(self, "project_input"):
             x = self.project_input(x)
         return x + h
@@ -153,7 +176,7 @@ class DiscriminatorInput(nn.Module):
         return self.Conv_0(x)
 
 
-class ResidualDiscriminatorBlock(nn.Module):
+class ResidualDiscriminatorBlock(RematBlock):
     """Pre-activation residual down block.
 
     main: [norm, act,] conv3(in->out), norm, act, conv3(out->out), avgpool2
@@ -177,11 +200,12 @@ class ResidualDiscriminatorBlock(nn.Module):
         if in_dims != out_dims:
             self.project_input = Conv(in_dims, out_dims, 1)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor,
+                      train: bool = True) -> torch.Tensor:
         h = x if self.first_block else self.NormAct_0(x, train)
-        h = self.Conv_0(h)
+        h = tagged(self.Conv_0, h)
         h = getattr(self, self.mid_norm)(h, train)
-        h = avg_pool_2x(self.Conv_1(h))
+        h = avg_pool_2x(tagged(self.Conv_1, h))
         x = downsample_bilinear_half(x, align_corners=True)
         if hasattr(self, "project_input"):
             x = self.project_input(x)
@@ -200,6 +224,114 @@ class DiscriminatorOutput(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = self.NormAct_0(x, train)
         return self.Dense_0(x.sum(dim=(2, 3)))
+
+
+class DiscriminatorPoolOnlyOutput(nn.Module):
+    """norm -> act -> 1x1 (``pool='conv'``: 4x4, SAME) conv -> sum or
+    mean pool (``blocks.py:774-797``)."""
+
+    def __init__(self, in_dims: int, out_dims: int, pool: str = "sum",
+                 norm: str = "bn", activation: str = "relu"):
+        super().__init__()
+        if pool not in ("sum", "avg", "conv"):
+            raise ValueError(f"no pooling method named '{pool}'")
+        self.pool = pool
+        self.NormAct_0 = NormAct(in_dims, norm, activation)
+        self.Conv_0 = Conv(in_dims, out_dims, 4 if pool == "conv" else 1)
+        if pool == "conv":
+            self.Conv_0.padding = (0, 0)  # padded in forward
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        x = self.NormAct_0(x, train)
+        if self.pool == "conv":
+            # flax's SAME for an even kernel pads 1 before and 2 after; the
+            # feature map is returned as it is (NCHW)
+            return self.Conv_0(F.pad(x, (1, 2, 1, 2)))
+        feats = self.Conv_0(x)
+        if self.pool == "avg":
+            return feats.mean(dim=(2, 3))
+        return feats.sum(dim=(1, 2, 3))[:, None]
+
+
+class IQNDiscriminatorOutput(nn.Module):
+    """IQN head (``blocks.py:799-827``): sum-pool the features, mix in the
+    embedding of each tau, a linear output per quantile, and their mean
+    over the quantiles as the prediction. With ``targets`` it also returns
+    the quantile-Huber loss of the per-quantile outputs. ``taus`` (Q*B, 1)
+    are the caller's (``models/iqn.py``)."""
+
+    def __init__(self, in_dims: int, out_dims: int, norm: str = "bn",
+                 activation: str = "relu"):
+        super().__init__()
+        self.out_dims = out_dims
+        self.NormAct_0 = NormAct(in_dims, norm, activation)
+        self.IQN_0 = IQN(in_dims)
+        self.to_output = Dense(in_dims, out_dims)
+
+    def forward(self, x: torch.Tensor, train: bool = True, targets=None,
+                taus: torch.Tensor | None = None):
+        if taus is None:
+            raise ValueError("the IQN head needs the quantiles taus")
+        feats = self.NormAct_0(x, train).sum(dim=(2, 3))  # (B, F)
+        p_target_tau = self.to_output(self.IQN_0(feats, taus, train))
+        p_target = p_target_tau.reshape(
+            self.IQN_0.num_quantiles, -1, self.out_dims).mean(0)
+        if targets is None:
+            return p_target
+        loss = iqn_loss(p_target_tau, targets, taus.repeat(1, self.out_dims))
+        return p_target, loss
+
+
+class LinearOutput(nn.Module):
+    """A linear head (``blocks.py:830-840``)."""
+
+    def __init__(self, in_dims: int, out_dims: int):
+        super().__init__()
+        self.Dense_0 = Dense(in_dims, out_dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(x)
+
+
+class GaussianParametersOutput(nn.Module):
+    """Linear -> act -> Linear -> (mu, log_sigma) (``blocks.py:843-857``)."""
+
+    def __init__(self, in_dims: int, out_dims: int, activation: str = "relu"):
+        super().__init__()
+        self.out_dims = out_dims
+        self.act = activation_fn(activation)
+        self.Dense_0 = Dense(in_dims, in_dims)
+        self.Dense_1 = Dense(in_dims, 2 * out_dims)
+
+    def forward(self, x: torch.Tensor):
+        h = self.Dense_1(self.act(self.Dense_0(x)))
+        return h[:, :self.out_dims], h[:, self.out_dims:]
+
+
+class MultiModelDiscriminatorOutput(nn.Module):
+    """One norm, act and sum-pool trunk feeding several heads
+    (``blocks.py:860-877``), the InfoGAN discriminator's output: a list
+    of the heads' outputs. ``head_factories`` map in_dims to a module;
+    each head is named as flax names it, by its class and a count
+    (``LinearOutput_0``, ``LinearOutput_1``)."""
+
+    def __init__(self, in_dims: int, head_factories=(), norm: str = "bn",
+                 activation: str = "relu"):
+        super().__init__()
+        self.NormAct_0 = NormAct(in_dims, norm, activation)
+        self.heads = []
+        counts = {}
+        for factory in head_factories:
+            head = factory(in_dims)
+            kind = type(head).__name__
+            name = f"{kind}_{counts.get(kind, 0)}"
+            counts[kind] = counts.get(kind, 0) + 1
+            self.add_module(name, head)
+            self.heads.append(name)
+
+    def forward(self, x: torch.Tensor, train: bool = True):
+        feats = self.NormAct_0(x, train).sum(dim=(2, 3))
+        return [getattr(self, name)(feats) for name in self.heads]
 
 
 # ------------------------------------------------------- parity-domain forms
@@ -276,7 +408,7 @@ def _parity_conv(h, conv, cout, mode, fused=False):
     return P.conv2d(h, pack3(w), b.repeat(4), padding=1)
 
 
-class ParityResidualGeneratorBlock(nn.Module):
+class ParityResidualGeneratorBlock(RematBlock):
     """``ResidualGeneratorBlock`` in the parity (sub-pixel) domain, the same
     math: conv1(up2(h)) is a small-resolution conv with 4x the output
     channels (the upsampled tensor never exists), conv2 runs over the
@@ -306,14 +438,16 @@ class ParityResidualGeneratorBlock(nn.Module):
         if in_dims != out_dims:
             self.project_input = Conv(in_dims, out_dims, 1)
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor,
+                      train: bool = True) -> torch.Tensor:
         cout = self.out_dims
         # norm+act commute with nearest upsampling; the upsample itself is
         # folded into conv1
         h = self.NormAct_0(x, train)
-        y1p = _parity_conv(h, self.Conv_0, cout, "up", fused=P.FUSED_G)
+        y1p = tagged(_parity_conv, h, self.Conv_0, cout, "up", P.FUSED_G)
         h2 = self.NormAct_1(y1p, train)
-        y2p = _parity_conv(h2, self.Conv_1, cout, "full", fused=P.FUSED_G)
+        y2p = tagged(_parity_conv, h2, self.Conv_1, cout, "full",
+                     P.FUSED_G)
         if hasattr(self, "project_input"):
             proj = self.project_input
             scp = P.conv2d(x, proj.weight.repeat(4, 1, 1, 1),
@@ -324,7 +458,7 @@ class ParityResidualGeneratorBlock(nn.Module):
         return yp if self.emit_parity else P.depth_to_space(yp, cout)
 
 
-class ParityResidualDiscriminatorBlock(nn.Module):
+class ParityResidualDiscriminatorBlock(RematBlock):
     """``ResidualDiscriminatorBlock`` in the space-to-depth domain: both
     full-resolution convs run over parity stacks, and the average pool is
     folded into conv2's weights (``pack_down_conv``), so the block emits
@@ -377,17 +511,18 @@ class ParityResidualDiscriminatorBlock(nn.Module):
             self.NormAct_0 = norm
         return self
 
-    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor,
+                      train: bool = True) -> torch.Tensor:
         cin, cout = self.in_dims, self.out_dims
         h = x if self.first_block else self.NormAct_0(x, train)
         hp = h if self.accept_parity else P.space_to_depth(h)
-        y1p = _parity_conv(hp, self.Conv_0, cout, "full")
+        y1p = tagged(_parity_conv, hp, self.Conv_0, cout, "full")
         h2 = getattr(self, self.mid_norm)(y1p, train)
         w2, b2 = self.Conv_1.weight, self.Conv_1.bias
         if self.emit_parity:
             # conv2 + pool emitting the parity stack of the half resolution
-            y2 = P.conv2d(h2, P.pack_down_parity_conv(w2), b2.repeat(4),
-                          stride=2, padding=1)
+            y2 = tagged(lambda: P.conv2d(h2, P.pack_down_parity_conv(w2),
+                                         b2.repeat(4), stride=2, padding=1))
             if self.accept_parity:
                 x_sc = downsample_bilinear_half_parity_to_parity(x, cin)
             else:
@@ -397,7 +532,8 @@ class ParityResidualDiscriminatorBlock(nn.Module):
                 x_sc = P.conv2d(x_sc, P.pack_point_conv(proj.weight),
                                 proj.bias.repeat(4))
             return x_sc + y2
-        y2 = P.conv2d(h2, P.pack_down_conv(w2), b2, padding=1)
+        y2 = tagged(lambda: P.conv2d(h2, P.pack_down_conv(w2), b2,
+                                     padding=1))
         if self.accept_parity:
             x_sc = downsample_bilinear_half_parity(x, cin)
         else:

@@ -5,17 +5,24 @@ Counterpart of ``tartangan_tpu/models/factories.py`` for the generator
 discriminator (``d_input_factory``, ``d_block_factory``,
 ``d_output_factory``): ``--g-base {mlp,tiledz}``, ``--norm {bn,id}``,
 ``--activation {relu,selu,elu}``, ``--parity-blocks {auto,on,off}``
-(``resolve_parity``), and the fused G block (``g_block_factory(fused=True)``,
-no CLI flag, as in the reference). Remat is not ported yet.
+(``resolve_parity``), the fused G block (``g_block_factory(fused=True)``,
+no CLI flag, as in the reference), ``--remat``/``--remat-policy``
+(``remat=``, ``remat_policy_name=``; ``ops/remat.py``), and the IQN and
+InfoGAN discriminators' output heads (``iqn_d_output_factory``,
+``info_d_output_factory``).
 """
 from __future__ import annotations
 
+from ..ops.remat import remat_policy
 from .blocks import (
     DiscriminatorInput,
     DiscriminatorOutput,
     FusedResidualGeneratorBlock,
     GeneratorInputMLP,
     GeneratorOutput,
+    IQNDiscriminatorOutput,
+    LinearOutput,
+    MultiModelDiscriminatorOutput,
     ParityResidualDiscriminatorBlock,
     ParityResidualGeneratorBlock,
     ResidualDiscriminatorBlock,
@@ -41,29 +48,39 @@ def g_input_factory(g_base: str, activation: str):
     return factory
 
 
+def _rematted(block, policy):
+    block.remat_policy = policy
+    return block
+
+
 def g_block_factory(norm: str, activation: str, fused: bool = False,
-                    parity: bool = False):
+                    parity: bool = False, remat: bool = False,
+                    remat_policy_name: str = "full"):
     """``parity=True`` (--parity-blocks) builds the thin tower blocks
     (upsample, not first, out_dims <= PARITY_MAX_DIMS) in the parity
     domain (``ParityResidualGeneratorBlock``); ``fused=True`` builds the
     other upsampling, not-first blocks as ``FusedResidualGeneratorBlock``
     (K4/K5) where norm is 'bn' and the activation 'relu'. Parity is
-    checked first, as in the reference."""
+    checked first, as in the reference. ``remat=True`` (--remat)
+    rematerializes the residual and parity blocks under
+    ``remat_policy_name``; the fused block is not rematerialized, as in the
+    reference (``factories.py:125-131``)."""
     fused_ok = fused and norm == "bn" and activation == "relu"
     parity_ok = parity and norm in ("bn", "id")
+    policy = remat_policy(remat_policy_name) if remat else None
 
     def factory(in_dims, out_dims, *, first_block=False, upsample=True):
         if (parity_ok and upsample and not first_block
                 and out_dims <= PARITY_MAX_DIMS):
-            return ParityResidualGeneratorBlock(
-                in_dims, out_dims, norm=norm, activation=activation)
+            return _rematted(ParityResidualGeneratorBlock(
+                in_dims, out_dims, norm=norm, activation=activation), policy)
         if fused_ok and upsample and not first_block:
             return FusedResidualGeneratorBlock(
                 in_dims, out_dims, norm=norm, activation=activation)
-        return ResidualGeneratorBlock(
+        return _rematted(ResidualGeneratorBlock(
             in_dims, out_dims, upsample=upsample, first_block=first_block,
             norm=norm, activation=activation,
-        )
+        ), policy)
     return factory
 
 
@@ -94,17 +111,20 @@ def d_input_factory():
     return factory
 
 
-def d_block_factory(norm: str, activation: str, parity: bool = False):
+def d_block_factory(norm: str, activation: str, parity: bool = False,
+                    remat: bool = False, remat_policy_name: str = "full"):
     """``parity=True`` builds blocks with out_dims <= PARITY_MAX_DIMS as
-    ``ParityResidualDiscriminatorBlock``."""
+    ``ParityResidualDiscriminatorBlock``; ``remat=True`` rematerializes
+    every block under ``remat_policy_name``."""
     parity_ok = parity and norm in ("bn", "id")
+    policy = remat_policy(remat_policy_name) if remat else None
 
     def factory(in_dims, out_dims, *, first_block=False):
         cls = (ParityResidualDiscriminatorBlock
                if parity_ok and out_dims <= PARITY_MAX_DIMS
                else ResidualDiscriminatorBlock)
-        return cls(in_dims, out_dims, first_block=first_block, norm=norm,
-                   activation=activation)
+        return _rematted(cls(in_dims, out_dims, first_block=first_block,
+                             norm=norm, activation=activation), policy)
     return factory
 
 
@@ -112,4 +132,24 @@ def d_output_factory(norm: str, activation: str):
     def factory(in_dims, out_dims):
         return DiscriminatorOutput(in_dims, out_dims, norm=norm,
                                    activation=activation)
+    return factory
+
+
+def iqn_d_output_factory(norm: str, activation: str):
+    def factory(in_dims, out_dims):
+        return IQNDiscriminatorOutput(in_dims, out_dims, norm=norm,
+                                      activation=activation)
+    return factory
+
+
+def info_d_output_factory(norm: str, activation: str, code_dims: int):
+    """Two heads on one trunk: the adversarial logit and the latent code's
+    reconstruction (``factories.py:197-211``)."""
+    heads = (lambda in_dims: LinearOutput(in_dims, 1),
+             lambda in_dims: LinearOutput(in_dims, code_dims))
+
+    def factory(in_dims, out_dims):
+        del out_dims
+        return MultiModelDiscriminatorOutput(
+            in_dims, head_factories=heads, norm=norm, activation=activation)
     return factory

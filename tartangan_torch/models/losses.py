@@ -1,6 +1,7 @@
 """GAN losses: BCE-with-logits and the R1 gradient penalty.
 
-Counterparts of ``tartangan_tpu/models/losses.py:15-21`` and ``:36-51``.
+Counterparts of ``tartangan_tpu/models/losses.py:15-21`` and ``:36-51``;
+the IQN loss is ``models/iqn.py::iqn_loss``.
 """
 from __future__ import annotations
 
@@ -29,10 +30,14 @@ def r1_gradient_penalty(d_apply_fn, real: torch.Tensor):
     batch, in float32 (float64 for a float64 input). The gradient keeps its
     graph (``create_graph=True``), so the penalty differentiates again
     w.r.t. D's parameters. ``real`` must require grad. Returns (penalty,
-    logits).
+    D's output). Where D's output is a tuple or list (the IQN head's
+    prediction and loss, the InfoGAN heads' logits and codes), its first
+    element is what the penalty differentiates, as the JAX trainers sum
+    only the prediction (``train/iqn.py:56-60``, ``train/info.py:75-80``).
     """
-    logits = d_apply_fn(real)
+    out = d_apply_fn(real)
+    logits = out[0] if isinstance(out, (tuple, list)) else out
     (grads,) = torch.autograd.grad(_f32(logits).sum(), real,
                                    create_graph=True)
     penalty = _f32(grads).square().reshape(real.shape[0], -1).sum(1).mean()
-    return penalty, logits
+    return penalty, out

@@ -1,7 +1,8 @@
 """"Pluggan": factory-composed generator and discriminator.
 
-Counterparts of ``tartangan_tpu/models/pluggan.py::Generator`` (:76-146)
-and ``Discriminator`` (:149-214), with the parity-domain fusions at the G
+Counterparts of ``tartangan_tpu/models/pluggan.py::Generator`` (:76-146),
+``Discriminator`` (:149-214) and ``IQNDiscriminator`` (:217-261), with the
+parity-domain fusions at the G
 output, the D input and the seams between parity D blocks. The blocks
 lists are built exactly as there, so ``blocks[i]`` is flax's ``blocks_i``:
 with attention after block 3, the attention layer takes index 4 and every
@@ -157,3 +158,41 @@ class Discriminator(nn.Module):
         for block in self.blocks:
             x = block(x, train)
         return self.output_block(x, train)
+
+
+class IQNDiscriminator(nn.Module):
+    """Discriminator ending in the IQN quantile head, which computes the
+    quantile-Huber loss when ``targets`` is given. Like the reference
+    (``pluggan.py:217-261``) it has no input conv and never sets
+    ``first_block``: the first block normalizes the image's channels.
+    ``taus`` are the head's (Q*B, 1) quantiles, drawn by the caller."""
+
+    def __init__(self, config: GANConfig, block_factory: Callable,
+                 output_factory: Callable, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        blocks = []
+        in_dims = config.data_dims
+        for block_i, out_dims in reversed(list(enumerate(config.blocks))):
+            blocks.append(block_factory(in_dims, out_dims, first_block=False))
+            if config.attention and block_i in config.attention:
+                blocks.append(SelfAttention2d(out_dims))
+            in_dims = out_dims
+        _chain_parity_d_blocks(blocks)
+        self.blocks = nn.ModuleList(blocks)
+        self.output_block = output_factory(in_dims, 1)
+
+    @property
+    def max_size(self) -> int:
+        return self.config.max_size
+
+    def forward(self, x: torch.Tensor, train: bool = True, targets=None,
+                taus: torch.Tensor | None = None):
+        """images (B, data_dims, H, W), NCHW -> (B, 1) predictions, and the
+        loss with ``targets``."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        for block in self.blocks:
+            x = block(x, train)
+        return self.output_block(x, train, targets=targets, taus=taus)

@@ -35,6 +35,7 @@ import torch
 
 from ..utils.precision import wide
 from . import build
+from .remat import reuse
 from .parity import (
     conv2d,
     conv_parity2,
@@ -105,8 +106,14 @@ def _count(fn, dtype):
 def merged_tap_conv(x, w_raw, cout, mode, bias=None):
     """(B, H, W, 4*cout) merged-tap parity conv of NHWC ``x`` plus
     ``tile(bias, 4)`` if given: K3 for CUDA tensors (one launch, the bias
-    added as it stores), ``fused_parity_conv_plain`` for CPU tensors."""
+    added as it stores), ``fused_parity_conv_plain`` for CPU tensors.
+    Under ``--remat-policy convs`` a block's recomputation takes the
+    forward's output back and launches nothing (``ops/remat.py::reuse``)."""
     _check(x, w_raw, cout, mode, bias)
+    return reuse(lambda: _merged_tap_conv(x, w_raw, cout, mode, bias))
+
+
+def _merged_tap_conv(x, w_raw, cout, mode, bias):
     if x.device.type == "cpu":
         return fused_parity_conv_plain(x, w_raw, cout, mode, bias)
     if x.device.type != "cuda":

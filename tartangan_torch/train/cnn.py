@@ -13,8 +13,12 @@ input to it) with float32 parameters, Adam state and EMA target; the losses
 and R1's square run in float32 on the bfloat16 logits and input gradient,
 as the reference's (``train/cnn.py:87-95``).
 
+``--remat`` rematerializes the residual and parity blocks of both
+towers under ``--remat-policy`` (``ops/remat.py``).
+
 Usage: python -m tartangan_torch.train.cnn DATA.npz --config 512thin
-       --batch-size 64 [--parity-blocks on] [--dtype bf16] [--device cuda|cpu]
+       --batch-size 64 [--parity-blocks on] [--dtype bf16]
+       [--remat [--remat-policy convs]] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -145,7 +149,8 @@ class CNNTrainer(Trainer):
             input_factory=F.g_input_factory(args.g_base, args.activation),
             block_factory=F.g_block_factory(
                 args.norm, args.activation,
-                parity=F.resolve_parity(args.parity_blocks)),
+                parity=F.resolve_parity(args.parity_blocks),
+                remat=args.remat, remat_policy_name=args.remat_policy),
             output_factory=F.g_output_factory(args.norm, args.activation),
             dtype=self.dtype,
         )
@@ -155,12 +160,18 @@ class CNNTrainer(Trainer):
         return Discriminator(
             self.gan_config,
             input_factory=F.d_input_factory(),
-            block_factory=F.d_block_factory(
-                args.norm, args.activation,
-                parity=F.resolve_parity(args.parity_blocks)),
+            block_factory=self.d_block_factory(),
             output_factory=F.d_output_factory(args.norm, args.activation),
             dtype=self.dtype,
         )
+
+    def d_block_factory(self):
+        """D's residual (or parity) blocks, rematerialized with --remat."""
+        args = self.args
+        return F.d_block_factory(
+            args.norm, args.activation,
+            parity=F.resolve_parity(args.parity_blocks),
+            remat=args.remat, remat_policy_name=args.remat_policy)
 
     def make_train_step(self):
         return make_cnn_train_step(

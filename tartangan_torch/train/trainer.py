@@ -40,6 +40,7 @@ from ..data.device import (
 )
 from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
+from ..ops.remat import POLICIES
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
 from ..utils.precision import full_float32, resolve_dtype
@@ -52,7 +53,6 @@ _UNPORTED = {
     "num_devices": (lambda a: a.num_devices not in (None, 1),
                     "data parallelism over several devices"),
     "tp": (lambda a: a.tp > 1, "tensor parallelism"),
-    "remat": (lambda a: a.remat, "rematerialization"),
     "checkpoint_format": (lambda a: getattr(a, "checkpoint_format",
                                             "msgpack") != "msgpack",
                           "orbax checkpoints"),
@@ -243,7 +243,7 @@ class Trainer:
         n = batch.shape[0]
         z_d = torch.stack([self.sample_z(n) for _ in range(self.args.iters_d)])
         z_g = self.sample_z(n)
-        return fn(self.state, batch, z_d, z_g)
+        return fn(self.state, batch, z_d, z_g, **self.extra_draws((), n))
 
     def _draw_device_data(self, k):
         n, h, w, _ = self._archive.shape
@@ -261,19 +261,30 @@ class Trainer:
 
     def chunk_draws(self, device_data: bool) -> dict:
         """Every random draw of one K-step call, on the device: the latents
-        ``z_d`` (K, iters_d, B, latent) and ``z_g`` (K, B, latent) and, from
-        the device archive, the rows ``idx`` and crop offsets ``ys``, ``xs``
-        (K, B)."""
+        ``z_d`` (K, iters_d, B, latent) and ``z_g`` (K, B, latent), the
+        subclass's ``extra_draws`` and, from the device archive, the rows
+        ``idx`` and crop offsets ``ys``, ``xs`` (K, B)."""
         k, b = self.steps_per_call, self.args.batch_size
-        latent = self.gan_config.latent_dims
         draws = {}
         if device_data:
             draws.update(zip(("idx", "ys", "xs"), self._draw_device_data(k)))
-        draws["z_d"] = torch.randn((k, self.args.iters_d, b, latent),
-                                   generator=self.z_gen, device=self.device)
-        draws["z_g"] = torch.randn((k, b, latent), generator=self.z_gen,
-                                   device=self.device)
+        draws["z_d"] = self.draw_z((k, self.args.iters_d, b))
+        draws["z_g"] = self.draw_z((k, b))
+        draws.update(self.extra_draws((k,), b))
         return draws
+
+    def draw_z(self, lead: tuple) -> torch.Tensor:
+        """Latents of shape ``lead + (latent,)`` from the trainer's
+        generator, on the device."""
+        return torch.randn(lead + (self.gan_config.latent_dims,),
+                           generator=self.z_gen, device=self.device)
+
+    def extra_draws(self, lead: tuple, n: int) -> dict:
+        """The draws a subclass's train step takes besides the latents, as
+        keyword arguments: for one step (``lead`` ()) or a K-step call
+        (``lead`` (K,)) at batch size ``n``, from the trainer's generator.
+        The CNN step takes none."""
+        return {}
 
     def make_chunk_call(self, device_data: bool):
         """The K-step call: ``chunk_train_step`` over the train step (and
@@ -309,8 +320,7 @@ class Trainer:
     def sample_z(self, n=None):
         if n is None:
             n = self.args.batch_size
-        return torch.randn((n, self.gan_config.latent_dims),
-                           generator=self.z_gen, device=self.device)
+        return self.draw_z((n,))
 
     def generate(self, n=None, target_g=False, z=None):
         """Images (NCHW in [-1, 1], the compute dtype) on the training
@@ -491,11 +501,17 @@ class Trainer:
         p.add_argument("--iters-d", type=int, default=1,
                        help="Discriminator updates per generator update")
         p.add_argument("--remat", action="store_true",
-                       help="Rematerialize blocks (not ported yet)")
+                       help="Rematerialize residual blocks in the backward "
+                            "pass (saves device memory at high resolutions)")
         p.add_argument("--remat-policy", default="full",
-                       choices=("full", "convs", "dots"),
-                       help="With --remat: what may be saved (not ported "
-                            "yet)")
+                       choices=POLICIES,
+                       help="With --remat: what the checkpoint may save. "
+                            "'full' recomputes everything; 'convs' saves "
+                            "the main-path conv outputs and recomputes "
+                            "only the norm/act chains (less backward "
+                            "FLOPs, most of the memory win); 'dots' is "
+                            "the stock no-batch-dims policy (no such "
+                            "products in the blocks: as 'full')")
         p.add_argument("--parity-blocks", default="auto",
                        choices=("auto", "on", "off"),
                        help="Parity-domain tower blocks; auto = off here "

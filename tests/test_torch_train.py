@@ -292,7 +292,7 @@ def test_trainer_losses_finite_and_stats_move(tiny_archive, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num-devices", "2"], ["--tp", "2"], ["--remat"],
+    ["--num-devices", "2"], ["--tp", "2"], ["--remat", "--num-devices", "2"],
     ["--checkpoint-format", "orbax"]])
 def test_unported_flags_raise(tiny_archive, tmp_path, flag):
     with pytest.raises(NotImplementedError):
