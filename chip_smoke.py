@@ -192,10 +192,33 @@ printing a result:
    tolerances); one IQN call of 2 steps replayed (taus drawn outside the
    graph) and held against eager.
 
+13. the shared-filter, scene and text trainers. With phase 4: K1 and K2
+   at the scene generator's attention ('512thin' with --scene-size 16: the
+   fourth block of config.blocks[2:], 256x256 with 16 channels: B 64, Lq
+   65536, Lk 16384, Ck 2, Cv 8), float32 and bfloat16: held against their
+   plain versions at B 1 (the plain logits take 4 GiB an image) and on the
+   last image of a B 64 launch with phase 3's tolerances, K1's lse too,
+   two K2 launches equal bit for bit, both also against the same math in
+   float64 (logged); timed at B 64 as phase 4 times them, the plain
+   version and SDPA at B 1 beside them (SDPA's fused backends, the only
+   ones that fit at B 64, take no head of width 2). After phase 12: the
+   shared CNN and IQN trainers and the scene trainer with --patch-noise,
+   '512thin' B 64 bfloat16, R1 every step, 2 steps each through the entry
+   points: finite losses, K1/K2 launches a step, step times, peak memory,
+   the checkpoint's JAX layout, a profile of a scene step; a float32 scene
+   step at B 2 with the kernels held against one with the plain attention
+   (phase 6's tolerances); one scene call of 2 steps replayed and held
+   against eager (``hold_graph``). Then the text GAN at config '128' (1-D),
+   --embedding-dims 64, B 128, on a seeded corpus the script writes: 4
+   steps, the first 2 pretraining the embedding, finite losses, a sample
+   file, the checkpoint's ``embedding`` and ``opt_emb``.
+
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2 at the G shape with the D shape's times under
-``shape_d``, K1's serving shapes under ``shape_serve`` and config
-'1024''s shapes in both dtypes under ``shape_1024``; K3-K5's times
+``shape_d``, K1's serving shapes under ``shape_serve``, config '1024''s
+shapes in both dtypes under ``shape_1024`` and the scene generator's under
+``shape_scene`` (``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
+plain version and SDPA fit); K3-K5's times
 summed over the launches of one G forward; each record's ``dtypes`` and,
 under ``bf16``, its bfloat16 numbers and the bfloat16 parity path's
 launches),
@@ -315,7 +338,7 @@ def nvidia_smi_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=20, reps=7):
+def cuda_ms(fn, iters=20, reps=3):
     """Median over ``reps`` of the mean device time of ``iters`` calls."""
     fn()
     torch.cuda.synchronize()
@@ -1197,13 +1220,13 @@ def time_train(trainer, batch, z_d, z_g):
     once(True)
     once(False)
     kernel, plain = [], []
-    for _ in range(2):  # 2 in turns: the whole smoke keeps its time limit
-        kernel.append(once(True))
-        plain.append(once(False))
+    # once in turns after the warm-up: the whole smoke keeps its time limit
+    kernel.append(once(True))
+    plain.append(once(False))
     set_attention_kernel(trainer, True)
     b = batch.shape[0]
     log(f"time train step '512thin' B{b} float32 (host clock, synchronized, "
-        f"2 each in turns after warm-up): kernel median "
+        f"once each in turns after warm-up): kernel median "
         f"{statistics.median(kernel):.3f} ms {[round(t, 3) for t in kernel]}"
         f"; plain attention median {statistics.median(plain):.3f} ms "
         f"{[round(t, 3) for t in plain]}")
@@ -1693,13 +1716,13 @@ def time_parity_step(trainer, plain, batch, z_d, z_g):
     once(trainer, uncached=True)
     once(plain)
     par, pl, cp, unc = [], [], [], []
-    for _ in range(2):  # 2 in turns: the whole smoke keeps its time limit
-        pl.append(once(plain))
-        par.append(once(trainer))
-        cp.append(once(trainer, copies=True))
-        unc.append(once(trainer, uncached=True))
+    # once in turns after the warm-up: the whole smoke keeps its time limit
+    pl.append(once(plain))
+    par.append(once(trainer))
+    cp.append(once(trainer, copies=True))
+    unc.append(once(trainer, uncached=True))
     log(f"time train step '512thin' B{batch.shape[0]} float32 (host clock, "
-        f"synchronized, 2 each in turns after warm-up): parity path "
+        f"synchronized, once each in turns after warm-up): parity path "
         f"(--parity-blocks on, FUSED_G, fused G blocks) median "
         f"{statistics.median(par):.3f} ms {[round(t, 3) for t in par]}; "
         f"plain path median {statistics.median(pl):.3f} ms "
@@ -2754,7 +2777,7 @@ def hold_parity_bf16(par16, init, batch, z_d, z_g, exact):
     return failed
 
 
-def time_steps(label, trainers, batch, z_d, z_g, reps=3, extra=None):
+def time_steps(label, trainers, batch, z_d, z_g, reps=2, extra=None):
     """Each trainer's step in turns (host clock, synchronized, after a
     warm-up), its peak device memory and a profile (device time by kernel,
     idle share); ``extra`` the step's other draws (the IQN step's taus).
@@ -3834,12 +3857,14 @@ def phase_1024_kernels(dev):
     return out
 
 
-def run_counted(trainer, label, stop=None):
+def run_counted(trainer, label, stop=None,
+                expect=(K1_PER_STEP, K2_PER_STEP)):
     """``trainer.train()`` with the K1/K2 launch counts set to 0 just
     before and read just after; each step synchronized and timed (host
     clock). With ``stop``, the run is interrupted before step ``stop`` as
     Ctrl-C interrupts it (the trainer's graceful end: samples and the
-    final checkpoint). Returns (per-step (K1, K2) launches, per-step ms,
+    final checkpoint). ``expect``: the (K1, K2) launches of every step
+    (the text GAN's (0, 0)). Returns (per-step (K1, K2) launches, per-step ms,
     wall s, peak device memory, device memory held after the run: the
     train state)."""
     from tartangan_torch.ops.attention import attention as k1
@@ -3868,11 +3893,10 @@ def run_counted(trainer, label, stop=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (k1.launches, k2.launches)
-    if 0 in launches or per_step != [(K1_PER_STEP, K2_PER_STEP)] * len(
+    if (0 in launches and any(expect)) or per_step != [expect] * len(
             per_step):
-        raise AssertionError(f"{label}: expected ({K1_PER_STEP}, "
-                             f"{K2_PER_STEP}) K1/K2 launches a step, got "
-                             f"{per_step} ({launches} in the run)")
+        raise AssertionError(f"{label}: expected {expect} K1/K2 launches a "
+                             f"step, got {per_step} ({launches} in the run)")
     return (per_step, times, wall, torch.cuda.max_memory_allocated(),
             torch.cuda.memory_allocated())
 
@@ -4149,6 +4173,360 @@ def phase_iqn_info(archive, dev):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 13
+P13_DIR = ROOT / "build" / "chip_smoke_p13"
+# the scene generator's attention at '512thin' with --scene-size 16: it
+# follows the fourth block of config.blocks[2:], at 256x256 with 16
+# channels (Ck 2, Cv 8; keys and values 2x2 max-pooled); B 64
+SHAPE_SCENE = (64, 65536, 16384, 2, 8)
+# the text GAN's corpus: seeded documents of 100-160 words over a Zipf
+# vocabulary; 512 documents make 4 batches of 128
+TEXT_DOCS, TEXT_VOCAB = 512, 2000
+
+
+def attention_f64(q, k, v, do):
+    """The attention's output and (dq, dk, dv) in float64, from the same
+    inputs: ``attention_plain`` and ``attention_bwd_plain``'s formulas
+    without their float32 casts."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    p = torch.softmax(torch.bmm(q, k.transpose(1, 2)), -1)
+    o = torch.bmm(p, v)
+    dv = torch.bmm(p.transpose(1, 2), do)
+    ds = torch.bmm(do, v.transpose(1, 2))
+    ds -= (ds * p).sum(-1, keepdim=True)
+    ds *= p
+    del p
+    return o, (torch.bmm(ds, k), torch.bmm(ds.transpose(1, 2), q), dv)
+
+
+def scene_kernel_hold(q, k, v, do, label):
+    """K1 (with lse) and K2 (fed K1's o and lse) against their plain
+    versions with phase 3's tolerances, each output over its max-abs (a
+    sum over Lq or Lk terms), K1's lse against the plain forward's; K2
+    launched twice for the same bits. Both also against the same math in
+    float64 (logged: which of kernel and plain version lies nearer).
+    Returns (K1's max abs error, K2's largest max abs error) against the
+    plain versions."""
+    from tartangan_torch.ops.attention import (_bwd, _fwd,
+                                               attention_bwd_plain,
+                                               attention_lse_plain,
+                                               attention_plain)
+    dtype = q.dtype
+    o, lse = _fwd(q, k, v, with_lse=True)
+    outs = _bwd(q, k, v, do, o, lse)
+    again = _bwd(q, k, v, do, o, lse)
+    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    del again
+    lse_err = (lse - attention_lse_plain(q, k)).abs().max().item()
+    torch.testing.assert_close(lse, attention_lse_plain(q, k),
+                               **TOL[torch.float32])
+    plain = (attention_plain(q, k, v), *attention_bwd_plain(q, k, v, do))
+    o64, grads64 = attention_f64(q, k, v, do)
+    errs, worst = {}, {}
+    for name, a, r, w in zip(("o", "dq", "dk", "dv"), (o, *outs), plain,
+                             (o64, *grads64)):
+        scale = w.abs().max()
+        errs[name] = tuple(((x.double() - y.double()).abs().max()
+                            / scale).item()
+                           for x, y in ((a, r), (a, w), (r, w)))
+        worst[name] = (a.double() - r.double()).abs().max().item()
+    del o64, grads64
+    log(f"kernel scene {label} {str(dtype)[6:]}: error over the float64 "
+        f"max-abs, (kernel vs plain, kernel vs float64, plain vs float64): "
+        + ", ".join(f"{n} ({a:.2e}, {b:.2e}, {c:.2e})"
+                    for n, (a, b, c) in errs.items())
+        + f"; lse vs plain {lse_err:.3e}; two K2 launches "
+        f"{'equal' if same else 'NOT equal'} bit for bit")
+    if not same:
+        raise AssertionError(f"scene {label}: two K2 launches differ")
+    for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *outs), plain):
+        scale = r.float().abs().max()
+        torch.testing.assert_close(a.float() / scale, r.float() / scale,
+                                   **TOL[dtype], msg=lambda m: f"{name}: {m}")
+    return worst["o"], max(worst["dq"], worst["dk"], worst["dv"])
+
+
+def phase_scene_kernels(dev):
+    """K1 and K2 at the scene generator's attention (SHAPE_SCENE), in
+    float32 and bfloat16. Held against their plain versions
+    (``scene_kernel_hold``) at B 1 (its own launch configuration: the
+    plain logits take 4 GiB an image) and on the last image of a B 64
+    launch (the training grid), then timed at B 64: the kernel's device
+    time (profiler), the wrapper's call (CUDA events), the bound; the plain
+    version and SDPA (math) at B 1, where they fit; SDPA at B 64 with its
+    fused backends only, null where none takes the shape. Returns {name:
+    {"G float32": record, ...}}, the kernels line's ``shape_scene``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tartangan_torch.ops.attention import (_bwd, _fwd,
+                                               attention_bwd_plain,
+                                               attention_plain)
+    b, lq, lk, ck, cv = SHAPE_SCENE
+    shape = f"B{b} Lq{lq} Lk{lk} Ck{ck} Cv{cv}"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {"attention_fwd": {}, "attention_bwd": {}}
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def timed(fn, iters):
+        try:
+            return cuda_ms(fn, iters=iters, reps=2)
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            log(f"  not timed: {str(e).splitlines()[0][:160]}")
+            return None
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        q, k, v, do = (torch.randn(s, device=dev, generator=gen).to(dtype)
+                       for s in ((b, lq, ck), (b, lk, ck), (b, lk, cv),
+                                 (b, lq, cv)))
+        one = [t[-1:].contiguous() for t in (q, k, v, do)]
+        err1, err2 = scene_kernel_hold(*one, "B1")
+        # the B 64 launch's last image against the plain version
+        o, lse = _fwd(q, k, v, with_lse=True)
+        dq, dk, dv = _bwd(q, k, v, do, o, lse)
+        errs = []
+        for name, a, r in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                              (attention_plain(*one[:3]),
+                               *attention_bwd_plain(*one))):
+            scale = r.float().abs().max()
+            errs.append(f"{name} {((a[-1:].float() - r.float()).abs().max() / scale).item():.2e}")
+            torch.testing.assert_close(a[-1:].float() / scale,
+                                       r.float() / scale, **TOL[dtype])
+        log(f"kernel scene {shape} {name_dt}: the last image of the B{b} "
+            f"launch within {TOL[dtype]} of the plain version, over its "
+            f"max-abs: {', '.join(errs)}")
+        del dq, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+        bf = dtype == torch.bfloat16
+        size, peak = (2, PEAK_BF16_FLOPS) if bf else (4, PEAK_F32_FLOPS)
+        plain_fwd = timed(lambda: attention_plain(*one[:3]), 3)
+        plain_bwd = timed(lambda: attention_bwd_plain(*one), 2)
+        lib_b1 = timed(lambda: F.scaled_dot_product_attention(
+            *one[:3], scale=1.0), 3)
+        # one head: SDPA's fused backends take (B, heads, L, E)
+        leaves = [t.detach()[:, None].requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd():
+            with sdpa_kernel(fused):
+                return F.scaled_dot_product_attention(*leaves, scale=1.0)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_fwd(), leaves, do[:, None])
+        lib_fwd, lib_bwd = timed(sdpa_fwd, 3), timed(sdpa_bwd, 2)
+
+        def k1():
+            return _fwd(q, k, v, with_lse=True)
+
+        def k2():
+            return _bwd(q, k, v, do, o, lse)
+        for name, fn, events, plain, lib, bound, err, iters in (
+                ("attention_fwd", k1, K1_EVENTS, plain_fwd, lib_fwd,
+                 attention_bound_ms(b, lq, lk, ck, cv, size, peak=peak),
+                 err1, 5),
+                ("attention_bwd", k2, K2_EVENTS, plain_bwd, lib_bwd,
+                 attention_bound_ms(b, lq, lk, ck, cv, size, backward=True,
+                                    peak=peak), err2, 3)):
+            rec = {"shape": shape,
+                   "ms": device_ms(fn, events, iters=iters),
+                   "call_ms": cuda_ms(fn, iters=iters - 1, reps=2),
+                   "plain_ms": None, "plain_b1_ms": plain,
+                   "library_ms": lib,
+                   "library_b1_ms": lib_b1 if name == "attention_fwd"
+                   else None,
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   "max_abs_err": err}
+            out[name][f"G {name_dt}"] = rec
+            log(f"time {name} scene G {shape} {name_dt}: kernel device "
+                f"{rec['ms']:.3f} ms (profiler), call {rec['call_ms']:.3f} "
+                f"ms, bound {bound[0]:.3f} ms ({bound[1]}), kernel at "
+                f"{100 * bound[0] / rec['ms']:.1f} % of the bound; plain at "
+                f"B1 {plain}, sdpa at B{b} (fused backends) {lib}, sdpa at "
+                f"B1 {rec['library_b1_ms']} ms (the plain version cannot "
+                f"run at B{b}: its logits take {b * lq * lk * 4 / 2**30:.0f}"
+                f" GiB)")
+        del q, k, v, do, o, lse, leaves, one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tree_shapes(tree, prefix=""):
+    """{path: shape} of a msgpack tree's leaves."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(tree_shapes(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = tuple(np.shape(value))
+    return out
+
+
+def p13_trainer(cls, archive, run_id, *extra, batch_size=64, dtype="bf16"):
+    out = P13_DIR / "out"
+    shutil.rmtree(out / run_id, ignore_errors=True)
+    return cls.create_from_cli([
+        str(archive), "--config", "512thin", "--batch-size", str(batch_size),
+        "--epochs", "1", "--dtype", dtype, "--device", "cuda", "--run-id",
+        run_id, "--output", str(out), "--quiet-logs", "--gen-freq",
+        "100000", *extra])
+
+
+def phase_new_trainers(archive, dev):
+    """The shared-filter CNN and IQN trainers and the scene trainer with
+    --patch-noise: '512thin', B 64, bfloat16, R1 every step, through
+    ``create_from_cli`` and ``.train()``, 2 steps each (interrupted after
+    the second): finite losses, K1/K2 launches a step (the counts set to 0
+    before each run), step times, peak memory, the final checkpoint's JAX
+    layout (the bank ``shared_filters`` HWIO, the scene's
+    ``structure_generator``), a profile of a scene step. Then a float32
+    scene step at B 2 with the kernels against one with the plain
+    attention (``hold_step``, phase 6's tolerances), and one scene call of
+    2 steps with --device-data --steps-per-call 2 replayed and held against
+    eager (``hold_graph``). Returns {name: (per-step ms, peak bytes)}."""
+    from tartangan_torch.train.scene import SceneTrainer
+    from tartangan_torch.train.shared.cnn import SharedCNNTrainer
+    from tartangan_torch.train.shared.iqn import SharedIQNTrainer
+    from tartangan_torch.utils import msgpack
+    results = {}
+    for name, cls, keys, extra in (
+            ("shared_cnn", SharedCNNTrainer, ("g_loss", "d_loss", "gp"), ()),
+            ("shared_iqn", SharedIQNTrainer, ("g_loss", "d_loss", "gp"), ()),
+            ("scene", SceneTrainer, ("g_loss", "d_loss", "gp"),
+             ("--patch-noise",))):
+        trainer = p13_trainer(cls, archive, name, *extra)
+        per_step, times, wall, peak, held = run_counted(trainer, name, stop=2)
+        losses = finite_logs(trainer, keys, 2)
+        ckpt = P13_DIR / "out" / name / "checkpoints" / "2"
+        g_tree = tree_shapes(msgpack.loads((ckpt / "g.msgpack").read_bytes()))
+        d_tree = tree_shapes(msgpack.loads((ckpt / "d.msgpack").read_bytes()))
+        opt_d = msgpack.loads((ckpt / "opt_d.msgpack").read_bytes())
+        assert int(opt_d["0"]["count"]) == 2
+        if name.startswith("shared"):
+            # latent 256, widest block 128: HWIO (3, 3, 256, 128)
+            assert g_tree["params/shared_filters"] == (3, 3, 256, 128)
+            assert d_tree["params/shared_filters"] == (3, 3, 256, 128)
+            assert "params/SharedResidualGeneratorBlock_6/SharedConvBlock_1/"\
+                "bias" in g_tree
+            head = ("IQNDiscriminatorOutput_0" if name == "shared_iqn"
+                    else "DiscriminatorOutput_0")
+            assert any(k.startswith(f"params/{head}/") for k in d_tree)
+        else:
+            assert g_tree["params/structure_generator/patch_transforms/"
+                          "kernel"] == (256, 120)
+            assert "params/SelfAttention2d_0/gamma" in g_tree
+            assert "params/ResidualGeneratorBlock_4/Conv_1/kernel" in g_tree
+        log(f"{name}: '512thin' B64 bfloat16, 2 steps in {wall:.1f} s (host "
+            f"clock, sampling and the checkpoint included); losses "
+            f"{losses}; K1/K2 launches a step {per_step}; step times "
+            f"{[round(t, 3) for t in times]} ms (the second: "
+            f"{64e3 / times[-1]:.1f} images/s); peak device memory "
+            f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held after the "
+            f"run); checkpoint {ckpt} in the JAX layout ({len(g_tree)} G "
+            f"and {len(d_tree)} D leaves)")
+        results[name] = (times, peak)
+        if name == "scene":
+            batch = torch.from_numpy(np.array(
+                trainer.dataset.images[:64])).to(dev)
+            trainer.z_gen.manual_seed(7)
+            z_d, z_g = trainer.draw_z((1, 64)), trainer.draw_z((64,))
+            extra_draws = trainer.extra_draws((), 64)
+            assert extra_draws["noise_g"].shape == (3, 3)
+
+            def step():
+                trainer._train_step(trainer.state, batch, z_d, z_g,
+                                    **extra_draws)
+                torch.cuda.synchronize()
+            step()
+            profile_call("train step scene bf16 B64", step)
+            del batch
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    hold = p13_trainer(SceneTrainer, archive, "scene_hold", "--patch-noise",
+                       batch_size=2, dtype="f32")
+    batch = torch.from_numpy(np.array(np.load(archive, mmap_mode="r")[:2])).to(
+        dev)
+    hold_step(hold, dev, batch)
+    del hold, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = p13_trainer(SceneTrainer, archive, "scene_graph",
+                          "--patch-noise", "--device-data",
+                          "--steps-per-call", "2")
+    train_dispatch("'512thin' scene bf16 K = 2", trainer, 1, 2)
+    draws = trainer.chunk_draws(True)
+    assert draws["noise_d"].shape == (2, 1, 3, 3), draws["noise_d"].shape
+    hold_graph("'512thin' scene bf16 K = 2", trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def write_corpus(path):
+    """TEXT_DOCS seeded documents of 100-160 words, one a line, over a
+    vocabulary of TEXT_VOCAB words drawn with Zipf frequencies."""
+    rng = np.random.default_rng(13)
+    words = np.array([f"w{i}" for i in range(TEXT_VOCAB)])
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1)
+    p /= p.sum()
+    with open(path, "w") as f:
+        for _ in range(TEXT_DOCS):
+            n = int(rng.integers(100, 161))
+            f.write(" ".join(words[rng.choice(TEXT_VOCAB, n, p=p)]) + " .\n")
+
+
+def phase_text():
+    """The text GAN at config '128' (blocks 128-128-64-32-16 in 1-D: G from
+    4 to 128 tokens), --embedding-dims 64, B 128, on the seeded corpus:
+    4 steps through ``create_from_cli`` and ``.train()``, the first 2
+    pretraining the embedding (G and D losses 0), the last 2 the full
+    step; finite losses, a sample file, the checkpoint's ``embedding`` and
+    ``opt_emb`` in the JAX layout, step times."""
+    from tartangan_torch.train.text_cnn import TextCNNTrainer
+    from tartangan_torch.utils import msgpack
+    P13_DIR.mkdir(parents=True, exist_ok=True)
+    corpus = P13_DIR / "corpus.txt"
+    write_corpus(corpus)
+    out = P13_DIR / "out"
+    shutil.rmtree(out / "text", ignore_errors=True)
+    trainer = TextCNNTrainer.create_from_cli([
+        str(corpus), "--config", "128", "--batch-size", "128", "--epochs",
+        "1", "--embedding-dims", "64", "--pretrain-embedding", "2",
+        "--device", "cuda", "--run-id", "text", "--output", str(out),
+        "--quiet-logs", "--gen-freq", "100000"])
+    per_step, times, wall, peak, _ = run_counted(trainer, "text",
+                                                 expect=(0, 0))
+    losses = finite_logs(trainer, ("g_loss", "d_loss", "gp",
+                                   "embedding_loss"), 4)
+    g = losses["g_loss"]
+    assert g[:2] == [0.0, 0.0] and all(x != 0 for x in g[2:]), g
+    sample = out / "text" / "samples" / "sample_4.txt"
+    text = sample.read_text()
+    assert text.count("-" * 40) == 16, text[:200]
+    ckpt = out / "text" / "checkpoints" / "4"
+    emb = tree_shapes(msgpack.loads((ckpt / "embedding.msgpack").read_bytes()))
+    vocab = len(trainer.dataset.vocab)
+    assert emb == {"embedding_u": (vocab, 64), "embedding_v": (vocab, 64)}
+    assert msgpack.loads((ckpt / "opt_emb.msgpack").read_bytes()) == {
+        "0": {}, "1": {}}
+    log(f"text: '128' in 1-D, B128 float32, embedding 64 over {vocab} "
+        f"tokens, 4 steps (2 pretraining the embedding) in {wall:.1f} s; "
+        f"losses {losses}; step times {[round(t, 3) for t in times]} ms; "
+        f"peak device memory {peak / 2**30:.3f} GiB; {sample} (first line: "
+        f"{text.splitlines()[0][:70]!r}); checkpoint {ckpt} with embedding "
+        f"and opt_emb")
+    return times, peak
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -4207,7 +4585,8 @@ def main():
         records = time_attention(dev, errs) + time_parity_kernels(dev, perrs)
         bf16 = time_bf16_kernels(dev, perrs16)
         shape_1024 = phase_1024_kernels(dev)
-        done("phases 1-4 and 12's kernels")
+        shape_scene = phase_scene_kernels(dev)
+        done("phases 1-4, 12's and 13's kernels")
         gc.collect()
         torch.cuda.empty_cache()
         app, serve_launches = phase_serve()
@@ -4266,6 +4645,12 @@ def main():
         log(f"phase 12 took {time.perf_counter() - t12:.1f} s after its "
             f"kernels")
         done("phase 12")
+        t13 = time.perf_counter()
+        phase_new_trainers(archive, dev)
+        phase_text()
+        log(f"phase 13 took {time.perf_counter() - t13:.1f} s after its "
+            f"kernels")
+        done("phase 13")
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]
@@ -4275,6 +4660,7 @@ def main():
             rec["bf16"] = {"launches": par16_launches[name], **bf16[name]}
             if name in shape_1024:
                 rec["shape_1024"] = shape_1024[name]
+                rec["shape_scene"] = shape_scene[name]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

@@ -9,15 +9,24 @@ path rename plus a layout change per leaf:
 - ``NormAct_i/BatchNorm_0/BatchNorm_0/{scale,bias}`` <->
   ``NormAct_i.BatchNorm_0.{weight,bias}``, and the ``batch_stats``
   ``{mean,var}`` <-> ``{running_mean,running_var}``;
-- conv ``kernel`` HWIO <-> ``weight`` OIHW; dense ``kernel`` (in, out) <->
-  ``weight`` (out, in); attention ``theta/phi/g/o`` are (1, 1, Cin, Cout)
-  convs without bias; ``gamma`` is a 0-d array.
+- conv ``kernel`` HWIO <-> ``weight`` OIHW, and in 1-D (the text GAN's
+  convs) WIO <-> OIW; dense ``kernel`` (in, out) <-> ``weight`` (out, in);
+  attention ``theta/phi/g/o`` are (1, 1, Cin, Cout) convs without bias;
+  ``gamma`` is a 0-d array.
 
 The fused generator block keeps the reference's flat names in both trees:
 ``conv1_kernel``, ``conv2_kernel``, ``project_kernel`` (HWIO <-> OIHW, the
 name unchanged), ``bn1_scale`` etc. as they are, and the ``batch_stats``
 ``bn1_mean``, ``bn1_var``, ``bn2_mean``, ``bn2_var`` as buffers of those
 names. The parity blocks have the plain blocks' trees.
+
+The shared-filter models keep flax's auto-names as attribute names
+(``SharedResidualGeneratorBlock_0/SharedConvBlock_1/bias``, ...), and
+their one bank ``shared_filters`` is HWIO (3, 3, max_in, max_out) <-> OIHW
+under its own name. The scene generator's trees are plain dense and conv
+leaves (``structure_generator/patch_transforms``, ``SceneBlock_3/patch/
+alpha``, ``refine_canvas``, ...), and the SkipGram's tables
+``embedding_u`` and ``embedding_v`` are (V, D) in both trees.
 
 The same mapping covers the discriminator (``input_block``, ``blocks_N``,
 ``output_block/Dense_0``, ``project_input``), the IQN discriminator's head
@@ -38,6 +47,14 @@ from torch import nn
 
 _BN = "BatchNorm_0"
 _STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+# a flax ``kernel`` by its rank -> torch's ``weight``, and back: conv HWIO
+# <-> OIHW, 1-D conv WIO <-> OIW, dense (in, out) <-> (out, in)
+_KERNEL_TO_TORCH = {4: lambda t: t.permute(3, 2, 0, 1),
+                    3: lambda t: t.permute(2, 1, 0), 2: lambda t: t.T}
+_KERNEL_TO_FLAX = {4: lambda a: a.transpose(2, 3, 1, 0),
+                   3: lambda a: a.transpose(2, 1, 0), 2: lambda a: a.T}
 
 
 def _flatten(tree, prefix=()):
@@ -75,9 +92,10 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
                 torch.from_numpy(np.array(leaf))
             *parents, name = _torch_path(path)
             if name == "kernel":
-                t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
+                t = _KERNEL_TO_TORCH[t.dim()](t)
                 name = "weight"
-            elif name.endswith("_kernel"):  # the fused block's flat convs
+            elif name.endswith("_kernel") or name == "shared_filters":
+                # the fused block's flat convs and the shared bank, HWIO
                 t = t.permute(3, 2, 0, 1)
             elif name == "scale":
                 name = "weight"
@@ -122,9 +140,9 @@ def _to_tree(named_tensors) -> dict:
         elif name == "weight" and parents and _is_bn(parents[-1]):
             name = "scale"
         elif name == "weight":
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            arr = _KERNEL_TO_FLAX[arr.ndim](arr)
             name = "kernel"
-        elif name.endswith("_kernel"):
+        elif name.endswith("_kernel") or name == "shared_filters":
             arr = arr.transpose(2, 3, 1, 0)
         node = tree[collection]
         for part in path:

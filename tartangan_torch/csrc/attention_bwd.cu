@@ -38,11 +38,15 @@
 //   3. dq pass, 48 FMAs + 1 exp2 a pair: a thread keeps two query rows' q,
 //      do, lse, delta and dq in registers and streams key tiles:
 //      dq += ds k (256 rows a CTA, or 128 where that leaves fewer than two
-//      CTAs an SM). A padded key carries a score bias of -inf (p = 0). It
+//      CTAs an SM); for the narrow heads also sum ds, sum p and sum p k
+//      (+Ck + 2), which replace delta with the one consistent with this
+//      pass's p at the end (dq_kernel). A padded key carries a score bias
+//      of -inf (p = 0). It
 //      runs before the dk/dv pass, which may start on the SMs its last
 //      wave leaves idle (programmatic dependent launch).
-// 128 FMAs + 2 exp2 a pair in all (the bound counts 3 Ck + 2 Cv = 88: s and
-// dp are computed in both passes). A thread takes 8 (dk/dv) or 4 (dq) (key, query) pairs a step
+// 128 FMAs + 2 exp2 a pair in all, 138 with the narrow heads' delta fix
+// (the bound counts 3 Ck + 2 Cv = 88: s and dp are computed in both
+// passes). A thread takes 8 (dk/dv) or 4 (dq) (key, query) pairs a step
 // and splits each Cv dot product into four partial sums, so a warp keeps
 // 16 or more independent FMA chains in flight; the dk/dv pass also
 // computes the next step's p during this step's FMAs. Staged rows are read
@@ -509,13 +513,16 @@ __device__ __forceinline__ void q_head(const float* ks, const float* bias,
 }
 
 // dp = do . v (four partial sums, -delta starting the first),
-// ds = p (dp - delta), dq += ds k for KS keys
-template <int CK, int CV, int NQ, int KS>
+// ds = p (dp - delta), dq += ds k for KS keys; with FIX, also the sums of
+// ds, of p and of p k that correct delta at the end (dq_kernel)
+template <int CK, int CV, int NQ, int KS, bool FIX>
 __device__ __forceinline__ void q_body(const float* ks, const float* vs,
                                        const float (&p)[NQ][KS],
                                        const float (&dr)[NQ][CV],
                                        const float (&dlt)[NQ],
-                                       float (&acc)[NQ][CK]) {
+                                       float (&acc)[NQ][CK],
+                                       float (&esum)[NQ], float (&psum)[NQ],
+                                       float (&kbar)[NQ][CK]) {
   float dp[NQ][KS][4];
 #pragma unroll
   for (int r = 0; r < NQ; ++r) {
@@ -543,7 +550,13 @@ __device__ __forceinline__ void q_body(const float* ks, const float* vs,
   for (int u = 0; u < KS; ++u) {
     float ds[NQ];
 #pragma unroll
-    for (int r = 0; r < NQ; ++r) ds[r] = p[r][u] * sum4(dp[r][u]);
+    for (int r = 0; r < NQ; ++r) {
+      ds[r] = p[r][u] * sum4(dp[r][u]);
+      if constexpr (FIX) {
+        esum[r] += ds[r];
+        psum[r] += p[r][u];
+      }
+    }
 #pragma unroll
     for (int c = 0; c < CK; c += 4) {
       const float4 x = ld4(ks + u * CK + c);
@@ -553,11 +566,27 @@ __device__ __forceinline__ void q_body(const float* ks, const float* vs,
         acc[r][c + 1] = fmaf(ds[r], x.y, acc[r][c + 1]);
         acc[r][c + 2] = fmaf(ds[r], x.z, acc[r][c + 2]);
         acc[r][c + 3] = fmaf(ds[r], x.w, acc[r][c + 3]);
+        if constexpr (FIX) {
+          kbar[r][c] = fmaf(p[r][u], x.x, kbar[r][c]);
+          kbar[r][c + 1] = fmaf(p[r][u], x.y, kbar[r][c + 1]);
+          kbar[r][c + 2] = fmaf(p[r][u], x.z, kbar[r][c + 2]);
+          kbar[r][c + 3] = fmaf(p[r][u], x.w, kbar[r][c + 3]);
+        }
       }
     }
   }
 }
 
+// delta = do . o comes from the forward's o, which carries that kernel's
+// rounding (its sums over the keys run in one order per row: at Lk 16384
+// o is ~3e-5 of its max-abs off float64). dq = sum_j p (dp - delta) k
+// cancels to a small value, so an error e in delta moves dq by e sum_j p k:
+// 1.2e-4 of dq's max-abs at Lk 16384, against 4e-6 for the plain version,
+// whose delta is sum_j p dp. With FIX (the narrow heads, whose rows run
+// longest) the pass also sums ds, p and p k, and ends with
+// dq -= (sum ds / sum p) sum p k: delta replaced by the one consistent with
+// this pass's p, sum p dp / sum p. The dk/dv pass keeps do . o: there an
+// error of one row's delta is one term of dk's sum over the rows.
 template <typename T, int CK, int CV, class L>
 __global__ void __launch_bounds__(L::NT)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -566,6 +595,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           T* __restrict__ dq, int lq, int lk, int ck, int cv, int vec_k,
           int vec_v) {
   constexpr int NQ = L::NQ, KS = L::KS, TK = L::TK;
+  constexpr bool FIX = CK + CV <= 64;
   __shared__ __align__(16) float smem[2 * L::STAGE];
   griddep_launch_dependents();
   const int b = blockIdx.y;
@@ -573,16 +603,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + static_cast<size_t>(b) * lk * cv;
 
   float qr[NQ][CK], dr[NQ][CV], acc[NQ][CK], lse2[NQ], dlt[NQ];
+  float esum[NQ], psum[NQ], kbar[NQ][CK];
 #pragma unroll
   for (int r = 0; r < NQ; ++r) {
     const int row = (blockIdx.x * NQ + r) * L::NT + threadIdx.x;
     const bool active = row < lq;
     const size_t qrow = static_cast<size_t>(b) * lq + row;
+    esum[r] = psum[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < CK; ++c) {
       qr[r][c] =
           (active && c < ck) ? to_float(q[qrow * ck + c]) * kLog2e : 0.f;
-      acc[r][c] = 0.f;
+      acc[r][c] = kbar[r][c] = 0.f;
     }
 #pragma unroll
     for (int c = 0; c < CV; ++c) {
@@ -610,13 +642,19 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < TK; jj += KS) {
       float p[NQ][KS];
       q_head<CK, NQ, KS>(ks + jj * CK, bias + jj, qr, lse2, p);
-      q_body<CK, CV, NQ, KS>(ks + jj * CK, vs + jj * CV, p, dr, dlt, acc);
+      q_body<CK, CV, NQ, KS, FIX>(ks + jj * CK, vs + jj * CV, p, dr, dlt,
+                                  acc, esum, psum, kbar);
     }
     __syncthreads();
   }
 #pragma unroll
   for (int r = 0; r < NQ; ++r) {
     const int row = (blockIdx.x * NQ + r) * L::NT + threadIdx.x;
+    if (FIX && psum[r] > 0.f) {
+      const float fix = esum[r] / psum[r];
+#pragma unroll
+      for (int c = 0; c < CK; ++c) acc[r][c] = fmaf(-fix, kbar[r][c], acc[r][c]);
+    }
     if (row < lq) {
       T* out = dq + (static_cast<size_t>(b) * lq + row) * ck;
 #pragma unroll

@@ -1,7 +1,8 @@
 """Generator and discriminator building blocks (NCHW).
 
 Counterparts of ``tartangan_tpu/models/blocks.py``: ``GeneratorInputMLP``
-(:537), ``TiledZGeneratorInput`` (:573), ``ResidualGeneratorBlock`` (:104),
+(:537), ``GeneratorInputMLP1d`` (:555), ``TiledZGeneratorInput`` (:573),
+``ResidualGeneratorBlock`` (:104),
 ``GeneratorOutput`` (:592), ``DiscriminatorInput`` (:649),
 ``ResidualDiscriminatorBlock`` (:717) and ``DiscriminatorOutput`` (:757);
 the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
@@ -11,7 +12,10 @@ the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
 InfoGAN discriminators' heads ``IQNDiscriminatorOutput`` (:799),
 ``LinearOutput`` (:830), ``GaussianParametersOutput`` (:843),
 ``MultiModelDiscriminatorOutput`` (:860), with
-``DiscriminatorPoolOnlyOutput`` (:774). Attribute names
+``DiscriminatorPoolOnlyOutput`` (:774). The plain residual blocks,
+``GeneratorOutput`` and ``DiscriminatorInput`` take ``ndim=1`` for the
+text GAN's NCL sequences (``_upsample``, ``_avg_pool``, ``_shortcut_down``,
+:62-76). Attribute names
 follow the flax param tree (``NormAct_0``, ``Conv_0``, ``project_input``,
 ...; the fused block's flat ``conv1_kernel`` ...), so a parity block has the
 plain block's tree and ``convert.py`` carries either. Every block takes
@@ -33,14 +37,33 @@ from ..ops.parity_conv import fused_parity_conv
 from ..ops.remat import checkpoint_block, tagged
 from ..ops.resize import (
     avg_pool_2x,
+    avg_pool_2x_1d,
     downsample_bilinear_half,
     downsample_bilinear_half_parity,
     downsample_bilinear_half_parity_to_parity,
+    resize_linear_1d,
     upsample_nearest_2x,
+    upsample_nearest_2x_1d,
 )
 from ..utils.precision import wide
 from .iqn import IQN, iqn_loss
 from .layers import BatchNorm, Conv, Dense, NormAct, activation_fn
+
+
+def _upsample(x, ndim):
+    return upsample_nearest_2x(x) if ndim == 2 else upsample_nearest_2x_1d(x)
+
+
+def _avg_pool(x, ndim):
+    return avg_pool_2x(x) if ndim == 2 else avg_pool_2x_1d(x)
+
+
+def _shortcut_down(x, ndim):
+    """The D shortcut's half-size resample: bilinear with align_corners in
+    2-D, linear without it in 1-D (the text GAN's)."""
+    if ndim == 2:
+        return downsample_bilinear_half(x, align_corners=True)
+    return resize_linear_1d(x, x.shape[2] // 2, align_corners=False)
 
 
 class RematBlock(nn.Module):
@@ -68,22 +91,23 @@ class ResidualGeneratorBlock(RematBlock):
 
     def __init__(self, in_dims: int, out_dims: int, upsample: bool = True,
                  first_block: bool = False, norm: str = "bn",
-                 activation: str = "relu"):
+                 activation: str = "relu", ndim: int = 2):
         super().__init__()
         self.upsample = upsample
         self.first_block = first_block
+        self.ndim = ndim
         # flax numbers NormAct modules in creation order: the input norm,
         # when there is one, is NormAct_0 and the mid norm NormAct_1
         mid = "NormAct_0"
         if not first_block:
             self.NormAct_0 = NormAct(in_dims, norm, activation)
             mid = "NormAct_1"
-        self.Conv_0 = Conv(in_dims, out_dims, 3)
+        self.Conv_0 = Conv(in_dims, out_dims, 3, ndim=ndim)
         setattr(self, mid, NormAct(out_dims, norm, activation))
         self.mid_norm = mid
-        self.Conv_1 = Conv(out_dims, out_dims, 3)
+        self.Conv_1 = Conv(out_dims, out_dims, 3, ndim=ndim)
         if in_dims != out_dims:
-            self.project_input = Conv(in_dims, out_dims, 1)
+            self.project_input = Conv(in_dims, out_dims, 1, ndim=ndim)
 
     def block_forward(self, x: torch.Tensor,
                       train: bool = True) -> torch.Tensor:
@@ -92,11 +116,11 @@ class ResidualGeneratorBlock(RematBlock):
         # those of the source), so they run at the small resolution, in
         # the same order as the reference (blocks.py:123-132)
         if self.upsample and not self.first_block:
-            h = upsample_nearest_2x(self.NormAct_0(x, train))
-            x = upsample_nearest_2x(x)
+            h = _upsample(self.NormAct_0(x, train), self.ndim)
+            x = _upsample(x, self.ndim)
         else:
             if self.upsample:
-                x = upsample_nearest_2x(x)
+                x = _upsample(x, self.ndim)
             h = x
             if not self.first_block:
                 h = self.NormAct_0(h, train)
@@ -127,6 +151,25 @@ class GeneratorInputMLP(nn.Module):
         return base.permute(0, 3, 1, 2).contiguous()
 
 
+class GeneratorInputMLP1d(nn.Module):
+    """latent -> act(Linear) -> (B, out, size), the text GAN's input."""
+
+    def __init__(self, latent_dims: int, output_dims: int, size: int = 4,
+                 activation: str = "relu"):
+        super().__init__()
+        self.output_dims = output_dims
+        self.size = size
+        self.act = activation_fn(activation)
+        self.Dense_0 = Dense(latent_dims, size * output_dims)
+
+    def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
+        del train
+        # flax reshapes the dense output as (B, L, C)
+        base = self.act(self.Dense_0(z)).reshape(-1, self.size,
+                                                 self.output_dims)
+        return base.permute(0, 2, 1).contiguous()
+
+
 class TiledZGeneratorInput(nn.Module):
     """Tile z to a (B, latent, size, size) map."""
 
@@ -148,14 +191,15 @@ class GeneratorOutput(nn.Module):
     """norm -> act -> 1x1 conv -> tanh."""
 
     def __init__(self, in_dims: int, out_dims: int, norm: str = "bn",
-                 activation: str = "relu", output_activation: str = "tanh"):
+                 activation: str = "relu", output_activation: str = "tanh",
+                 ndim: int = 2):
         super().__init__()
         if output_activation not in ("tanh", "id"):
             raise ValueError(f"unknown output activation '{output_activation}'")
         self.output_activation = output_activation
         self.norm, self.activation = norm, activation
         self.NormAct_0 = NormAct(in_dims, norm, activation)
-        self.Conv_0 = Conv(in_dims, out_dims, 1)
+        self.Conv_0 = Conv(in_dims, out_dims, 1, ndim=ndim)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = self.Conv_0(self.NormAct_0(x, train))
@@ -165,11 +209,11 @@ class GeneratorOutput(nn.Module):
 
 
 class DiscriminatorInput(nn.Module):
-    """1x1 conv image -> features."""
+    """1x1 conv image (or NCL sequence) -> features."""
 
-    def __init__(self, in_dims: int, out_dims: int):
+    def __init__(self, in_dims: int, out_dims: int, ndim: int = 2):
         super().__init__()
-        self.Conv_0 = Conv(in_dims, out_dims, 1)
+        self.Conv_0 = Conv(in_dims, out_dims, 1, ndim=ndim)
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train
@@ -180,40 +224,41 @@ class ResidualDiscriminatorBlock(RematBlock):
     """Pre-activation residual down block.
 
     main: [norm, act,] conv3(in->out), norm, act, conv3(out->out), avgpool2
-    shortcut: bilinear 0.5x (align_corners=True), then a 1x1 projection iff
-    in != out.
+    shortcut: bilinear 0.5x (align_corners=True; 1-D: linear without it),
+    then a 1x1 projection iff in != out.
     """
 
     def __init__(self, in_dims: int, out_dims: int, first_block: bool = False,
-                 norm: str = "bn", activation: str = "relu"):
+                 norm: str = "bn", activation: str = "relu", ndim: int = 2):
         super().__init__()
         self.first_block = first_block
+        self.ndim = ndim
         # flax's creation order, as in ResidualGeneratorBlock
         mid = "NormAct_0"
         if not first_block:
             self.NormAct_0 = NormAct(in_dims, norm, activation)
             mid = "NormAct_1"
-        self.Conv_0 = Conv(in_dims, out_dims, 3)
+        self.Conv_0 = Conv(in_dims, out_dims, 3, ndim=ndim)
         setattr(self, mid, NormAct(out_dims, norm, activation))
         self.mid_norm = mid
-        self.Conv_1 = Conv(out_dims, out_dims, 3)
+        self.Conv_1 = Conv(out_dims, out_dims, 3, ndim=ndim)
         if in_dims != out_dims:
-            self.project_input = Conv(in_dims, out_dims, 1)
+            self.project_input = Conv(in_dims, out_dims, 1, ndim=ndim)
 
     def block_forward(self, x: torch.Tensor,
                       train: bool = True) -> torch.Tensor:
         h = x if self.first_block else self.NormAct_0(x, train)
         h = tagged(self.Conv_0, h)
         h = getattr(self, self.mid_norm)(h, train)
-        h = avg_pool_2x(tagged(self.Conv_1, h))
-        x = downsample_bilinear_half(x, align_corners=True)
+        h = _avg_pool(tagged(self.Conv_1, h), self.ndim)
+        x = _shortcut_down(x, self.ndim)
         if hasattr(self, "project_input"):
             x = self.project_input(x)
         return x + h
 
 
 class DiscriminatorOutput(nn.Module):
-    """norm -> act -> spatial sum-pool -> Linear."""
+    """norm -> act -> sum-pool over every spatial axis -> Linear."""
 
     def __init__(self, in_dims: int, out_dims: int, norm: str = "bn",
                  activation: str = "relu"):
@@ -223,7 +268,7 @@ class DiscriminatorOutput(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = self.NormAct_0(x, train)
-        return self.Dense_0(x.sum(dim=(2, 3)))
+        return self.Dense_0(x.sum(dim=tuple(range(2, x.dim()))))
 
 
 class DiscriminatorPoolOnlyOutput(nn.Module):

@@ -5,7 +5,8 @@ Counterpart of ``tartangan_tpu/models/factories.py`` for the generator
 discriminator (``d_input_factory``, ``d_block_factory``,
 ``d_output_factory``): ``--g-base {mlp,tiledz}``, ``--norm {bn,id}``,
 ``--activation {relu,selu,elu}``, ``--parity-blocks {auto,on,off}``
-(``resolve_parity``), the fused G block (``g_block_factory(fused=True)``,
+(``resolve_parity``), ``ndim=1`` for the text GAN's NCL blocks and its
+``"mlp1d"`` input, the fused G block (``g_block_factory(fused=True)``,
 no CLI flag, as in the reference), ``--remat``/``--remat-policy``
 (``remat=``, ``remat_policy_name=``; ``ops/remat.py``), and the IQN and
 InfoGAN discriminators' output heads (``iqn_d_output_factory``,
@@ -19,6 +20,7 @@ from .blocks import (
     DiscriminatorOutput,
     FusedResidualGeneratorBlock,
     GeneratorInputMLP,
+    GeneratorInputMLP1d,
     GeneratorOutput,
     IQNDiscriminatorOutput,
     LinearOutput,
@@ -37,6 +39,7 @@ PARITY_MAX_DIMS = 64
 G_INPUTS = {
     "mlp": GeneratorInputMLP,
     "tiledz": TiledZGeneratorInput,
+    "mlp1d": GeneratorInputMLP1d,
 }
 
 
@@ -55,7 +58,7 @@ def _rematted(block, policy):
 
 def g_block_factory(norm: str, activation: str, fused: bool = False,
                     parity: bool = False, remat: bool = False,
-                    remat_policy_name: str = "full"):
+                    remat_policy_name: str = "full", ndim: int = 2):
     """``parity=True`` (--parity-blocks) builds the thin tower blocks
     (upsample, not first, out_dims <= PARITY_MAX_DIMS) in the parity
     domain (``ParityResidualGeneratorBlock``); ``fused=True`` builds the
@@ -64,9 +67,10 @@ def g_block_factory(norm: str, activation: str, fused: bool = False,
     checked first, as in the reference. ``remat=True`` (--remat)
     rematerializes the residual and parity blocks under
     ``remat_policy_name``; the fused block is not rematerialized, as in the
-    reference (``factories.py:125-131``)."""
-    fused_ok = fused and norm == "bn" and activation == "relu"
-    parity_ok = parity and norm in ("bn", "id")
+    reference (``factories.py:125-131``). Parity and fused blocks are 2-D
+    only; ``ndim=1`` builds the plain blocks over NCL."""
+    fused_ok = fused and norm == "bn" and activation == "relu" and ndim == 2
+    parity_ok = parity and norm in ("bn", "id") and ndim == 2
     policy = remat_policy(remat_policy_name) if remat else None
 
     def factory(in_dims, out_dims, *, first_block=False, upsample=True):
@@ -79,16 +83,18 @@ def g_block_factory(norm: str, activation: str, fused: bool = False,
                 in_dims, out_dims, norm=norm, activation=activation)
         return _rematted(ResidualGeneratorBlock(
             in_dims, out_dims, upsample=upsample, first_block=first_block,
-            norm=norm, activation=activation,
+            norm=norm, activation=activation, ndim=ndim,
         ), policy)
     return factory
 
 
-def g_output_factory(norm: str, activation: str, output_activation="tanh"):
+def g_output_factory(norm: str, activation: str, output_activation="tanh",
+                     ndim: int = 2):
     def factory(in_dims, out_dims):
         return GeneratorOutput(in_dims, out_dims, norm=norm,
                                activation=activation,
-                               output_activation=output_activation)
+                               output_activation=output_activation,
+                               ndim=ndim)
     return factory
 
 
@@ -105,26 +111,31 @@ def resolve_parity(choice: str) -> bool:
     return False
 
 
-def d_input_factory():
+def d_input_factory(ndim: int = 2):
     def factory(in_dims, out_dims):
-        return DiscriminatorInput(in_dims, out_dims)
+        return DiscriminatorInput(in_dims, out_dims, ndim=ndim)
     return factory
 
 
 def d_block_factory(norm: str, activation: str, parity: bool = False,
-                    remat: bool = False, remat_policy_name: str = "full"):
+                    remat: bool = False, remat_policy_name: str = "full",
+                    ndim: int = 2):
     """``parity=True`` builds blocks with out_dims <= PARITY_MAX_DIMS as
-    ``ParityResidualDiscriminatorBlock``; ``remat=True`` rematerializes
-    every block under ``remat_policy_name``."""
-    parity_ok = parity and norm in ("bn", "id")
+    ``ParityResidualDiscriminatorBlock`` (2-D only); ``remat=True``
+    rematerializes every block under ``remat_policy_name``."""
+    parity_ok = parity and norm in ("bn", "id") and ndim == 2
     policy = remat_policy(remat_policy_name) if remat else None
 
     def factory(in_dims, out_dims, *, first_block=False):
-        cls = (ParityResidualDiscriminatorBlock
-               if parity_ok and out_dims <= PARITY_MAX_DIMS
-               else ResidualDiscriminatorBlock)
-        return _rematted(cls(in_dims, out_dims, first_block=first_block,
-                             norm=norm, activation=activation), policy)
+        if parity_ok and out_dims <= PARITY_MAX_DIMS:
+            block = ParityResidualDiscriminatorBlock(
+                in_dims, out_dims, first_block=first_block, norm=norm,
+                activation=activation)
+        else:
+            block = ResidualDiscriminatorBlock(
+                in_dims, out_dims, first_block=first_block, norm=norm,
+                activation=activation, ndim=ndim)
+        return _rematted(block, policy)
     return factory
 
 

@@ -1,4 +1,4 @@
-"""Shared layer primitives: norms, activations, convs (NCHW).
+"""Shared layer primitives: norms, activations, convs (NCHW; NCL in 1-D).
 
 Counterpart of ``tartangan_tpu/models/layers.py:24-109``. Submodules keep
 the flax module names (``BatchNorm_0``, ``Conv_0``, ...) as attribute names,
@@ -132,6 +132,14 @@ class _Conv2d(nn.Conv2d):
                               padding=self.padding)
 
 
+class _Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` in its input's dtype (the text GAN's NCL convs)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_in_dtype(F.conv1d, x, self.weight, self.bias,
+                              padding=self.padding)
+
+
 class _Linear(nn.Linear):
     """``nn.Linear`` in its input's dtype (flax's ``Dense`` with ``dtype``)."""
 
@@ -140,12 +148,34 @@ class _Linear(nn.Linear):
 
 
 def Conv(in_features: int, features: int, kernel: int = 3, *,
-         use_bias: bool = True) -> nn.Conv2d:
-    """Conv with SAME padding (odd kernels), NCHW."""
-    return _Conv2d(in_features, features, kernel, padding=kernel // 2,
-                   bias=use_bias)
+         use_bias: bool = True, ndim: int = 2) -> nn.Module:
+    """Conv with SAME padding (odd kernels), NCHW, or NCL with ``ndim=1``
+    (the JAX package's NLC ``Conv(..., ndim=1)``, ``layers.py:75``; torch's
+    default init, whose bias bound has fan_in = in * kernel)."""
+    cls = {1: _Conv1d, 2: _Conv2d}[ndim]
+    return cls(in_features, features, kernel, padding=kernel // 2,
+               bias=use_bias)
 
 
 def Dense(in_features: int, features: int, *,
           use_bias: bool = True) -> nn.Linear:
     return _Linear(in_features, features, bias=use_bias)
+
+
+class AutoNamed(nn.Module):
+    """A model whose submodules take flax's auto-names, their class and a
+    count (``SharedConvBlock_1``, ``SelfAttention2d_0``), or a name given,
+    so a ``state_dict`` is the flax tree by path; ``layers`` lists them in
+    call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers = []
+
+    def _add(self, module: nn.Module, name: str | None = None) -> None:
+        if name is None:
+            kind = type(module).__name__
+            count = sum(n.startswith(kind + "_") for n in self.layers)
+            name = f"{kind}_{count}"
+        self.add_module(name, module)
+        self.layers.append(name)

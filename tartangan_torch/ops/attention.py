@@ -14,7 +14,9 @@ Gradients go through two ``torch.autograd.Function``s:
   (lse, (B, Lq) f32 in the log2 domain); it saves q, k, v, o and lse, and
   its backward is ``_AttentionBwd.apply(q, k, v, do, o, lse)``;
 - ``_AttentionBwd``: forward is K2, which takes p from lse and
-  delta = do . o once a row, so it never sweeps the keys to rebuild them;
+  delta = do . o once a row, so it never sweeps the keys to rebuild them
+  (its dq pass corrects delta to the one consistent with its p, where
+  ``delta_fixed``);
   backward is the vector-Jacobian product (``torch.func.vjp``) of
   ``attention_bwd_plain``, the closed form that ``_attn_bwd_core_bwd``
   differentiates; so the R1 penalty's second-order gradient works, and any
@@ -84,19 +86,30 @@ def attention_bwd_plain(q, k, v, do):
     return dq, dk, dv
 
 
+def delta_fixed(ck: int, cv: int) -> bool:
+    """Whether K2's dq pass replaces delta = do . o by the delta consistent
+    with its own p (its narrow-head instance, Ck <= 8 and Cv <= 32, whose
+    key rows run longest: ``csrc/attention_bwd.cu`` dq_kernel)."""
+    return ck <= 8 and cv <= 32
+
+
 def attention_bwd_from_stats_plain(q, k, v, do, o, lse):
     """(dq, dk, dv) as K2 computes them, in plain torch ops: p from the
     forward's lse (log2 domain) and delta = do . o once a row, all in f32;
-    outputs in the input dtypes."""
+    outputs in the input dtypes. Where ``delta_fixed``, dq takes delta as
+    sum(p dp) / sum(p) instead, as the kernel's dq pass does."""
     q32, k32, do32 = q.float(), k.float(), do.float()
     s2 = torch.bmm(q32, k32.transpose(1, 2)) * LOG2E
     p = torch.exp2(s2 - lse.unsqueeze(-1))
     delta = (do32 * o.float()).sum(-1, keepdim=True)
     dv = torch.bmm(p.transpose(1, 2), do32).to(v.dtype)
     ds = p * (torch.bmm(do32, v.float().transpose(1, 2)) - delta)
-    dq = torch.bmm(ds, k32).to(q.dtype)
+    dq = torch.bmm(ds, k32)
+    if delta_fixed(q.shape[2], v.shape[2]):
+        fix = ds.sum(-1, keepdim=True) / p.sum(-1, keepdim=True)
+        dq = dq - fix * torch.bmm(p, k32)
     dk = torch.bmm(ds.transpose(1, 2), q32).to(k.dtype)
-    return dq, dk, dv
+    return dq.to(q.dtype), dk, dv
 
 
 def _check(q, k, v):

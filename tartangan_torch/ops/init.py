@@ -31,13 +31,13 @@ def default_init_(weight: torch.Tensor, bias, generator: torch.Generator):
 def init_module_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every conv / linear parameter of ``module`` with torch's
     default init from ``generator``, in module order (a module with an
-    ``init_parameters_(generator)`` method draws its own), and zero every
-    attention ``gamma``."""
+    ``init_parameters_(generator)`` method draws its own instead), and zero
+    every attention ``gamma``."""
     for m in module.modules():
         init = getattr(m, "init_parameters_", None)
-        if init is not None:  # a module with flat parameters of its own
+        if init is not None:  # a module with parameters of its own init
             init(generator)
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             default_init_(m.weight, m.bias, generator)
         gamma = getattr(m, "gamma", None)
         if isinstance(gamma, nn.Parameter):

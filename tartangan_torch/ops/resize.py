@@ -4,7 +4,9 @@ Counterparts of ``tartangan_tpu/ops/resize.py`` (NHWC there): the nearest
 2x upsample of the G blocks, the 2x2 max pool of the self-attention K/V,
 the D blocks' 2x2 average pool and bilinear half-size shortcut, that
 shortcut taken from a parity stack (``ops/parity.py`` layout), and the
-Inception wrapper's bilinear resize to 299 and its stem's 3x3 max pool.
+Inception wrapper's bilinear resize to 299 and its stem's 3x3 max pool;
+and the text GAN's 1-D forms over NCL: the nearest 2x upsample, the 2-wide
+average pool and the linear resize.
 """
 from __future__ import annotations
 
@@ -23,6 +25,27 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     x = x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2)
     return x.reshape(b, c, h * 2, w * 2)
+
+
+def upsample_nearest_2x_1d(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NCL."""
+    b, c, n = x.shape
+    return x[:, :, :, None].expand(b, c, n, 2).reshape(b, c, n * 2)
+
+
+def avg_pool_2x_1d(x: torch.Tensor) -> torch.Tensor:
+    """2-wide/stride-2 average pool on NCL."""
+    return F.avg_pool1d(x, 2)
+
+
+def resize_linear_1d(x: torch.Tensor, out_l: int,
+                     align_corners: bool = False) -> torch.Tensor:
+    """Linear resize of NCL ``x`` to length ``out_l`` as the JAX package's
+    interpolation-matrix product (``ops/resize.py:64-71``)."""
+    n = x.shape[2]
+    if n == out_l:
+        return x
+    return torch.einsum("ol,bcl->bco", _interp(n, out_l, align_corners, x), x)
 
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:

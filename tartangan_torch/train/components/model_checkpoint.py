@@ -2,7 +2,9 @@
 
 Counterpart of ``tartangan_tpu/train/components/model_checkpoint.py:25-149``
 (msgpack format): ``{output}/{run_id}/checkpoints/{steps}/`` holds
-``g``, ``g_target``, ``d``, ``opt_g`` and ``opt_d`` as flax msgpack trees
+``g``, ``g_target``, ``d``, ``opt_g`` and ``opt_d`` (and a trainer's other
+artifacts, as ``{name}.msgpack``: the text GAN's ``embedding`` and
+``opt_emb``) as flax msgpack trees
 (``utils/msgpack.py``, the trees from ``convert.py``) and
 ``trainer.json``, so the JAX package's ``serialization.from_bytes`` and
 ``tartangan_tpu.serve`` read the port's checkpoints and the port resumes
@@ -61,8 +63,9 @@ class ModelCheckpointComponent(TrainerComponent):
         print(f"resuming from checkpoint {self.checkpoint_root}")
         self._loaded_from = self.trainer.steps
         loaded = {}
-        for name in ARTIFACT_FILES:
-            filename = f"{self.checkpoint_root}/{ARTIFACT_FILES[name]}"
+        for name in self.trainer.checkpoint_artifacts():
+            fname = ARTIFACT_FILES.get(name, f"{name}.msgpack")
+            filename = f"{self.checkpoint_root}/{fname}"
             with smart_open(filename, "rb") as infile:
                 loaded[name] = msgpack.loads(infile.read())
         self.trainer.load_checkpoint_artifacts(loaded)

@@ -69,6 +69,19 @@ def check_unported(args) -> None:
                 "is not ported yet")
 
 
+def metrics_component(name: str):
+    """--metrics-collector's component class: katib, kubeflow or
+    tensorboard."""
+    from .components.metrics import (
+        KatibMetricsComponent,
+        KubeflowMetricsComponent,
+        TensorboardComponent,
+    )
+    return {"katib": KatibMetricsComponent,
+            "kubeflow": KubeflowMetricsComponent,
+            "tensorboard": TensorboardComponent}[name]
+
+
 class Trainer:
     """Base trainer. Subclasses implement ``build_models`` (the modules,
     the optimizers, ``self.state`` and ``self._train_step``)."""
@@ -336,10 +349,10 @@ class Trainer:
             return g(z, train=True)
 
     def sample_g(self, n=None, target_g=False, z=None):
-        """``generate``'s images as NHWC float32 numpy (the image
-        sampler's)."""
+        """``generate``'s samples channels-last as float32 numpy: NHWC
+        images (the image sampler's), or the text GAN's (B, L, D)."""
         out = self.generate(n, target_g, z)
-        return out.permute(0, 2, 3, 1).float().cpu().numpy()
+        return out.movedim(1, -1).float().cpu().numpy()
 
     # --------------------------------------------------------------- state
     def get_state(self):
@@ -404,16 +417,7 @@ class Trainer:
             classes.append(FIDComponent)
 
         if args.metrics_collector:
-            from .components.metrics import (
-                KatibMetricsComponent,
-                KubeflowMetricsComponent,
-                TensorboardComponent,
-            )
-            classes.append({
-                "katib": KatibMetricsComponent,
-                "kubeflow": KubeflowMetricsComponent,
-                "tensorboard": TensorboardComponent,
-            }[args.metrics_collector])
+            classes.append(metrics_component(args.metrics_collector))
         return classes
 
     @classmethod

@@ -72,5 +72,4 @@ def apply_in_dtype(op, x, w, b=None, **kwargs):
         return op(x, w, None if b is None else b.to(dt), **kwargs)
     if b is None:
         return y
-    b = b.to(dt)
-    return y + (b if y.dim() == 2 else b[:, None, None])
+    return y + b.to(dt).reshape(-1, *(1,) * (y.dim() - 2))
