@@ -174,7 +174,8 @@ printing a result:
    Ctrl-C ends a run) without remat and with ``--remat`` under 'full',
    'convs' and 'dots': finite losses, K1/K2 launches a step (the counts
    set to 0 before each run), peak memory, step time, images/s, and the
-   first step's losses within TOL_REMAT_LOSS of the run without remat;
+   first step's losses within TOL_REMAT_LOSS of the run without remat
+   (only the run without remat writes sample PNGs);
    then the largest batch of {32, 48, 64} that 'convs' is reckoned to fit
    from its B 16 peak (FIT_SHARE of the card), 2 steps at it. Then
    ``--remat`` with K3 inside ('512thin', the parity path of phase 7,
@@ -212,9 +213,27 @@ printing a result:
    --embedding-dims 64, B 128, on a seeded corpus the script writes: 4
    steps, the first 2 pretraining the embedding, finite losses, a sample
    file, the checkpoint's ``embedding`` and ``opt_emb``.
+14. apps and export, at '512thin' full width on phase 6's run (float32)
+   and phase 12's InfoGAN run, through the apps' classes: render_tour and
+   continuous_interp (--output-size 256) write their PNGs with one K1
+   launch a ``generate`` call; find_image with Adam, B 2, 20 steps on
+   G's own image of a seeded latent (the array method: no Pillow on the
+   card): the loss falls and K1 (with its lse) and K2 launch once a step;
+   one step's loss and gradient w.r.t. z held against the plain
+   attention's (phase 6's tolerances); a step timed; L-BFGS for 5 steps
+   (K1 and K2 once for the step and once a line-search trial) and --vgg
+   (Inception forward and backward at 299) for 3, finite, timed;
+   info_encode: one B 32 batch of seeded arrays through the InfoGAN D,
+   codes held against the plain attention's, K1 at D's shape, --recon
+   written; export.web --onnx at B 1: the ``.pt2`` loaded and run on the
+   card launches K1 once and matches ``generate``, the ONNX graph through
+   the numpy interpreter matches G's eval-mode output; sizes and times.
+   The attention's gamma is set to 0.5 where a held comparison needs it
+   to count (3 training steps leave it near its init value, 0).
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
-line (K1-K5; K1/K2 at the G shape with the D shape's times under
+line (K1-K5; K1/K2's launches in phase 14's find_image run under
+``launches_find``; K1/K2 at the G shape with the D shape's times under
 ``shape_d``, K1's serving shapes under ``shape_serve``, config '1024''s
 shapes in both dtypes under ``shape_1024`` and the scene generator's under
 ``shape_scene`` (``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
@@ -3908,11 +3927,18 @@ def finite_logs(trainer, keys, steps):
     return losses
 
 
-def run_1024(archive, label, batch_size, *extra):
+def run_1024(archive, label, batch_size, *extra, samples=True):
     """'1024' at full width, bfloat16, R1 every step, through
     ``create_from_cli`` and ``.train()``, 2 steps (interrupted after the
-    second); then one step without R1 on its state, for its peak memory."""
+    second); then one step without R1 on its state, for its peak memory.
+    ``samples=False`` skips the sample PNGs (after the first step and at
+    the end, ~9 s each at 1024² on an H100), which the run without remat
+    writes; the sampler's latent draws go with them, so the second step's
+    latents, and losses, differ from that run's (only the first step's
+    are held)."""
     from tartangan_torch.train.cnn import CNNTrainer, make_cnn_train_step
+    from tartangan_torch.train.components.image_sampler import (
+        ImageSamplerComponent)
     out = P12_DIR / "out"
     shutil.rmtree(out / label, ignore_errors=True)
     trainer = CNNTrainer.create_from_cli([
@@ -3920,6 +3946,10 @@ def run_1024(archive, label, batch_size, *extra):
         "--epochs", "2", "--dtype", "bf16", "--device", "cuda",
         "--run-id", label, "--output", str(out), "--quiet-logs",
         "--gen-freq", "100000", *extra])
+    if not samples:
+        for component in trainer.components.components:
+            if isinstance(component, ImageSamplerComponent):
+                component.output_samples = lambda filename: None
     per_step, times, wall, peak, held = run_counted(trainer, label, stop=2)
     assert len(per_step) == 2, per_step
     steps = len(per_step)
@@ -3940,7 +3970,8 @@ def run_1024(archive, label, batch_size, *extra):
     torch.cuda.synchronize()
     peak_no_r1 = torch.cuda.max_memory_allocated()
     log(f"1024 {label}: B{batch_size} bfloat16, {steps} steps in {wall:.1f} s"
-        f" (host clock, sampling and the checkpoint included); step times "
+        f" (host clock, {'sampling and ' if samples else ''}the checkpoint "
+        f"included); step times "
         f"{[round(t, 3) for t in times]} ms (the last: {ms:.3f} ms, "
         f"{1e3 * batch_size / ms:.1f} images/s); losses {losses}; K1/K2 "
         f"launches a step {per_step}; peak device memory "
@@ -3975,7 +4006,8 @@ def phase_1024():
                                         "convs")),
                        ("remat dots", ("--remat", "--remat-policy",
                                        "dots"))):
-        runs[way] = run_1024(archive, way.replace(" ", "_"), 16, *flags)
+        runs[way] = run_1024(archive, way.replace(" ", "_"), 16, *flags,
+                             samples=not flags)
     base = runs["no remat"]["losses"]
     for way, run in runs.items():
         for k in base:
@@ -4000,7 +4032,7 @@ def phase_1024():
     if fits:
         b = max(fits)
         big = run_1024(archive, f"remat_convs_b{b}", b, "--remat",
-                       "--remat-policy", "convs")
+                       "--remat-policy", "convs", samples=False)
         runs[f"remat convs B{b}"] = big
         log(f"1024: --remat convs at B{b}: peak {big['peak'] / 2**30:.3f} "
             f"GiB against the reckoned {reckon[b] / 2**30:.3f} GiB")
@@ -4527,6 +4559,240 @@ def phase_text():
     return times, peak
 
 
+# --------------------------------------------------------------- phase 14
+APPS_DIR = ROOT / "build" / "chip_smoke_apps"
+# find_image's objective with the kernels against the plain attention: the
+# loss relative and the gradient w.r.t. z over its max-abs (phase 6's
+# TOL_STEP_LOSS and TOL_STEP_GRAD)
+
+
+def attention_layers(model, gamma=None):
+    from tartangan_torch.models.attention import SelfAttention2d
+    layers = [m for m in model.modules() if isinstance(m, SelfAttention2d)]
+    if gamma is not None:
+        with torch.no_grad():
+            for m in layers:
+                m.gamma.fill_(gamma)
+    return layers
+
+
+@contextlib.contextmanager
+def plain_attention(model):
+    layers = attention_layers(model)
+    for m in layers:
+        m.use_kernel = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.use_kernel = True
+
+
+def timed(fn):
+    """(fn's result, host seconds with the device drained)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_apps(dev):
+    """Phase 14: the post-training apps and the export at '512thin' full
+    width (see the module docstring). Returns K1's and K2's launches in the
+    find_image run."""
+    from tartangan_torch.explore.continuous_interp import ContinuousInterp
+    from tartangan_torch.explore.find_image import FindImage
+    from tartangan_torch.explore.info_encode import InfoGANEncodeImage
+    from tartangan_torch.explore.render_tour import RenderTour
+    from tartangan_torch.export import onnx_eval
+    from tartangan_torch.export.web import WebExportApp
+    from tartangan_torch.ops.attention import attention, attention_bwd
+    t_phase = time.perf_counter()
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    APPS_DIR.mkdir(parents=True)
+    runs = [TRAIN_DIR / "out" / b for b in ("b64", "b32")
+            if (TRAIN_DIR / "out" / b / "checkpoints").is_dir()]
+    run, info_run = str(runs[0]), str(P12_DIR / "out" / "info")
+    rng = np.random.default_rng(14)
+
+    # render_tour and continuous_interp, default flags
+    attention.launches = 0
+    prefix = APPS_DIR / "tour" / "frame"
+    app = RenderTour(RenderTour.parse_cli_args([run, str(prefix)]))
+    _, secs = timed(app.run)
+    frames = sorted(prefix.parent.glob("frame_*.png"))
+    assert len(frames) == 6, frames  # 2 points x 3 frames
+    assert png_size(frames[0].read_bytes()) == (516, 516)
+    assert attention.launches == 1, attention.launches
+    log(f"apps: render_tour wrote {len(frames)} PNGs in {secs:.2f} s (host "
+        f"clock, load included), K1 launches {attention.launches}")
+    attention.launches = 0
+    prefix = APPS_DIR / "interp" / "img"
+    app = ContinuousInterp(ContinuousInterp.parse_cli_args(
+        [run, str(prefix), "--output-size", "256"]))
+    _, secs = timed(app.run)
+    out = Path(f"{prefix}_combined.png")
+    assert png_size(out.read_bytes()) == (260, 260)
+    assert attention.launches == 6, attention.launches  # a grid row a call
+    log(f"apps: continuous_interp wrote {out.name} in {secs:.2f} s, K1 "
+        f"launches {attention.launches} (one a grid row)")
+    del app
+
+    # find_image, Adam, B 2, 20 steps
+    fi = FindImage(FindImage.parse_cli_args(
+        [run, str(APPS_DIR / "find" / "adam"), "unused.png",
+         "--max-steps", "20"]))
+    fi.load_generator()
+    attention_layers(fi.g, gamma=0.5)
+    target = fi.generate(rng.standard_normal((1, 256)).astype(np.float32))[0]
+    z0 = rng.standard_normal((2, 256)).astype(np.float32)
+    per_step = []
+    step = fi.step
+
+    def counted(*a):
+        before = (attention.launches, attention_bwd.launches)
+        out = step(*a)
+        per_step.append((attention.launches - before[0],
+                         attention_bwd.launches - before[1]))
+        return out
+    fi.step = counted
+    attention.launches = attention_bwd.launches = 0
+    _, secs = timed(lambda: fi.find(target, z=z0))
+    launches_find = {"attention_fwd": attention.launches,
+                     "attention_bwd": attention_bwd.launches}
+    adam_losses = list(fi.loss_history)
+    log(f"apps: find_image adam B2 20 steps in {secs:.2f} s (host clock, 2 "
+        f"PNGs included); loss {adam_losses[0]:.2f} -> {adam_losses[-1]:.2f};"
+        f" K1/K2 launches {launches_find}")
+    assert np.all(np.isfinite(adam_losses))
+    assert adam_losses[-1] < adam_losses[0], adam_losses
+    assert per_step == [(1, 1)] * 20, per_step
+    fi.step = step
+    zt = torch.as_tensor(z0, device=dev)
+    loss_k, grad_k, _ = fi.value_and_grad(zt)
+    with plain_attention(fi.g):
+        loss_p, grad_p, _ = fi.value_and_grad(zt)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_err = float((grad_k - grad_p).abs().max() / grad_p.abs().max())
+    log(f"apps: find_image objective at z0, kernels vs plain attention: "
+        f"loss rel err {loss_err:.3e} (tolerance "
+        f"{TOL_STEP_LOSS['rtol']}), grad w.r.t. z err over max-abs "
+        f"{grad_err:.3e} (tolerance {TOL_STEP_GRAD['atol']})")
+    assert loss_err <= TOL_STEP_LOSS["rtol"], loss_err
+    assert grad_err <= TOL_STEP_GRAD["atol"], grad_err
+    state = fi.opt.init(zt)
+    ms_adam = host_ms(lambda: timed(lambda: fi.step(zt, state)), reps=5)
+    with plain_attention(fi.g):
+        ms_plain = host_ms(lambda: timed(lambda: fi.step(zt, state)), reps=5)
+    log(f"time find_image adam step B2 (host clock, device drained): "
+        f"{ms_adam:.3f} ms with the kernels, {ms_plain:.3f} ms with the "
+        f"plain attention")
+
+    # L-BFGS, 5 steps: K1 and K2 once for the step and once a trial
+    fi.args.optimizer, fi.args.max_steps = "lbfgs", 5
+    fi.args.output_prefix = str(APPS_DIR / "find" / "lbfgs")
+    attention.launches = attention_bwd.launches = 0
+    _, secs = timed(lambda: fi.find(target, z=z0))
+    trials = fi.linesearch_steps
+    log(f"apps: find_image lbfgs B2 5 steps in {secs:.2f} s "
+        f"({secs / 5 * 1e3:.1f} ms a step, host clock); line-search trials "
+        f"a step {trials}; loss {fi.loss_history[0]:.2f} -> "
+        f"{fi.loss_history[-1]:.2f}; K1/K2 launches {attention.launches}/"
+        f"{attention_bwd.launches}")
+    assert np.all(np.isfinite(fi.loss_history))
+    assert fi.loss_history[-1] < fi.loss_history[0], fi.loss_history
+    assert attention.launches == attention_bwd.launches == 5 + sum(trials)
+
+    # --vgg, 3 steps (Adam): Inception forward and backward at 299
+    fi.args.optimizer, fi.args.max_steps, fi.args.vgg = "adam", 3, True
+    fi.args.output_prefix = str(APPS_DIR / "find" / "vgg")
+    _, secs = timed(lambda: fi.find(target, z=z0))
+    log(f"apps: find_image --vgg B2 3 steps in {secs:.2f} s (host clock, "
+        f"Inception's init and the target's features included); losses "
+        f"{fi.loss_history}")
+    assert np.all(np.isfinite(fi.loss_history))
+    ms_vgg = host_ms(lambda: timed(lambda: fi.step(zt, fi.opt.init(zt))),
+                     reps=3)
+    log(f"time find_image --vgg adam step B2 (host clock): {ms_vgg:.3f} ms")
+    del fi, target
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # info_encode: one B 32 batch through the InfoGAN D
+    ie = InfoGANEncodeImage(InfoGANEncodeImage.parse_cli_args(
+        [info_run, str(APPS_DIR / "info" / "codes"), "unused", "--recon"]))
+    ie.load_generator(target=False)
+    ie.load_discriminator(info=True)
+    d_attn = attention_layers(ie.d, gamma=0.5)
+    shapes = []
+    hook = d_attn[0].register_forward_pre_hook(
+        lambda m, a: shapes.append(tuple(a[0].shape)))
+    imgs = rng.uniform(-1, 1, (32, 512, 512, 3)).astype(np.float32)
+    attention.launches = 0
+    (_, codes), secs = timed(lambda: ie.discriminate(imgs))
+    launches_d = attention.launches
+    with plain_attention(ie.d):
+        _, codes_plain = ie.discriminate(imgs)
+    hook.remove()
+    err = float(np.abs(codes - codes_plain).max())
+    log(f"apps: info_encode D B32 in {secs * 1e3:.1f} ms (host clock), K1 "
+        f"launches {launches_d} at D's attention input {shapes[0]} "
+        f"(Lq {shapes[0][2] * shapes[0][3]}); codes {codes.shape} vs the "
+        f"plain attention's: max_abs_err {err:.3e}")
+    assert launches_d == 1 and shapes[0][2:] == (32, 32), shapes
+    np.testing.assert_allclose(codes, codes_plain, rtol=1e-4, atol=1e-4)
+    codes2, secs = timed(lambda: ie.encode_batch(imgs, 0))
+    recon = APPS_DIR / "info" / "codes_0.png"
+    assert codes2.shape == (32, 15) and png_size(recon.read_bytes()) == (
+        8 * 512 + 18, 4 * 512 + 10)
+    log(f"apps: info_encode --recon B32 (D, G(codes), PNG) in {secs:.2f} s")
+    del ie, imgs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # export.web --onnx at B 1
+    base = APPS_DIR / "web" / "ttgan"
+    we = WebExportApp(WebExportApp.parse_cli_args(
+        [run, "--output", str(base), "--onnx"]))
+    _, secs = timed(we.run)
+    sizes = {ext: Path(f"{base}.{ext}").stat().st_size
+             for ext in ("pt2", "json", "onnx")}
+    log(f"apps: export.web --onnx B1 in {secs:.2f} s (host clock: load, "
+        f"torch.export, save, reload and run, ONNX emit and one numpy "
+        f"interpreter run); sizes {sizes} bytes")
+    t0 = time.perf_counter()
+    program = torch.export.load(f"{base}.pt2").module()
+    secs_load = time.perf_counter() - t0
+    z = rng.standard_normal((1, 256)).astype(np.float32)
+    attention.launches = 0
+    with torch.inference_mode():
+        out, secs_run = timed(lambda: program(torch.as_tensor(z, device=dev)))
+    launches_pt2 = attention.launches
+    out = out.permute(0, 2, 1, 3).cpu().numpy()  # NWHC -> NHWC
+    err = float(np.abs(out - we.generate(z)).max())
+    log(f"apps: .pt2 loaded in {secs_load:.2f} s, run B1 in "
+        f"{secs_run * 1e3:.1f} ms (first call); K1 launches {launches_pt2}; "
+        f"vs generate max_abs_err {err:.3e}")
+    assert launches_pt2 == 1, launches_pt2
+    assert err <= 1e-5, err
+    model_bytes = Path(f"{base}.onnx").read_bytes()
+    t0 = time.perf_counter()
+    onnx_out = onnx_eval.evaluate(model_bytes, {"z": z})["image"]
+    secs_onnx = time.perf_counter() - t0
+    with torch.inference_mode():
+        ref = we.g(torch.as_tensor(z, device=dev), train=False).cpu().numpy()
+    err = float(np.abs(onnx_out - ref).max())
+    log(f"apps: ONNX through the numpy interpreter B1 in {secs_onnx:.2f} s "
+        f"(host); vs G eval mode on the card max_abs_err {err:.3e}")
+    assert err <= 1e-3, err
+    del we, program
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"apps: phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_find
+
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -4651,6 +4917,10 @@ def main():
         log(f"phase 13 took {time.perf_counter() - t13:.1f} s after its "
             f"kernels")
         done("phase 13")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches_find = phase_apps(dev)
+        done("phase 14")
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]
@@ -4661,6 +4931,8 @@ def main():
             if name in shape_1024:
                 rec["shape_1024"] = shape_1024[name]
                 rec["shape_scene"] = shape_scene[name]
+            if name in launches_find:
+                rec["launches_find"] = launches_find[name]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

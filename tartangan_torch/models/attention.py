@@ -25,6 +25,7 @@ class SelfAttention2d(nn.Module):
         super().__init__()
         ck = max(in_dims // 8, 1)
         cv = max(in_dims // 2, 1)
+        self.in_dims = in_dims
         self.use_kernel = use_kernel
         self.theta = Conv(in_dims, ck, 1, use_bias=False)
         self.phi = Conv(in_dims, ck, 1, use_bias=False)

@@ -2,9 +2,10 @@
 
 Counterparts of ``tartangan_tpu/models/blocks.py``: ``GeneratorInputMLP``
 (:537), ``GeneratorInputMLP1d`` (:555), ``TiledZGeneratorInput`` (:573),
-``ResidualGeneratorBlock`` (:104),
+``GeneratorBlock`` (:78), ``ResidualGeneratorBlock`` (:104),
 ``GeneratorOutput`` (:592), ``DiscriminatorInput`` (:649),
-``ResidualDiscriminatorBlock`` (:717) and ``DiscriminatorOutput`` (:757);
+``DiscriminatorBlock`` (:694), ``ResidualDiscriminatorBlock`` (:717) and
+``DiscriminatorOutput`` (:757);
 the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
 ``ParityGeneratorOutput`` (:613), ``ParityResidualDiscriminatorBlock``
 (:444) and ``ParityDiscriminatorInput`` (:664) with the folded BatchNorm
@@ -12,7 +13,7 @@ the parity-domain forms ``ParityResidualGeneratorBlock`` (:376),
 InfoGAN discriminators' heads ``IQNDiscriminatorOutput`` (:799),
 ``LinearOutput`` (:830), ``GaussianParametersOutput`` (:843),
 ``MultiModelDiscriminatorOutput`` (:860), with
-``DiscriminatorPoolOnlyOutput`` (:774). The plain residual blocks,
+``DiscriminatorPoolOnlyOutput`` (:774). The plain and residual blocks,
 ``GeneratorOutput`` and ``DiscriminatorInput`` take ``ndim=1`` for the
 text GAN's NCL sequences (``_upsample``, ``_avg_pool``, ``_shortcut_down``,
 :62-76). Attribute names
@@ -93,8 +94,10 @@ class ResidualGeneratorBlock(RematBlock):
                  first_block: bool = False, norm: str = "bn",
                  activation: str = "relu", ndim: int = 2):
         super().__init__()
+        self.in_dims, self.out_dims = in_dims, out_dims
         self.upsample = upsample
         self.first_block = first_block
+        self.norm, self.activation = norm, activation
         self.ndim = ndim
         # flax numbers NormAct modules in creation order: the input norm,
         # when there is one, is NormAct_0 and the mid norm NormAct_1
@@ -132,6 +135,37 @@ class ResidualGeneratorBlock(RematBlock):
         return x + h
 
 
+class GeneratorBlock(nn.Module):
+    """Non-residual pre-activation up block (``blocks.py:78-101``), the
+    default factory's: [upsample,] [norm, act,] conv3(in->out), norm, act,
+    conv3(out->out)."""
+
+    def __init__(self, in_dims: int, out_dims: int, upsample: bool = True,
+                 first_block: bool = False, norm: str = "bn",
+                 activation: str = "relu", ndim: int = 2):
+        super().__init__()
+        self.upsample = upsample
+        self.first_block = first_block
+        self.ndim = ndim
+        mid = "NormAct_0"  # flax's creation order
+        if not first_block:
+            self.NormAct_0 = NormAct(in_dims, norm, activation)
+            mid = "NormAct_1"
+        self.Conv_0 = Conv(in_dims, out_dims, 3, ndim=ndim)
+        setattr(self, mid, NormAct(out_dims, norm, activation))
+        self.mid_norm = mid
+        self.Conv_1 = Conv(out_dims, out_dims, 3, ndim=ndim)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if self.upsample:
+            x = _upsample(x, self.ndim)
+        if not self.first_block:
+            x = self.NormAct_0(x, train)
+        x = self.Conv_0(x)
+        x = getattr(self, self.mid_norm)(x, train)
+        return self.Conv_1(x)
+
+
 class GeneratorInputMLP(nn.Module):
     """latent -> act(Linear) -> (B, out, size, size)."""
 
@@ -140,6 +174,7 @@ class GeneratorInputMLP(nn.Module):
         super().__init__()
         self.output_dims = output_dims
         self.size = size
+        self.activation = activation
         self.act = activation_fn(activation)
         self.Dense_0 = Dense(latent_dims, size ** 2 * output_dims)
 
@@ -179,6 +214,7 @@ class TiledZGeneratorInput(nn.Module):
         if latent_dims != output_dims:
             raise ValueError("TiledZGeneratorInput needs latent_dims == "
                              f"output_dims, got {latent_dims}, {output_dims}")
+        self.latent_dims = latent_dims
         self.size = size
 
     def forward(self, z: torch.Tensor, train: bool = True) -> torch.Tensor:
@@ -197,6 +233,7 @@ class GeneratorOutput(nn.Module):
         if output_activation not in ("tanh", "id"):
             raise ValueError(f"unknown output activation '{output_activation}'")
         self.output_activation = output_activation
+        self.in_dims = in_dims
         self.norm, self.activation = norm, activation
         self.NormAct_0 = NormAct(in_dims, norm, activation)
         self.Conv_0 = Conv(in_dims, out_dims, 1, ndim=ndim)
@@ -218,6 +255,33 @@ class DiscriminatorInput(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train
         return self.Conv_0(x)
+
+
+class DiscriminatorBlock(nn.Module):
+    """Non-residual pre-activation down block (``blocks.py:694-714``), the
+    default factory's: [norm, act,] conv3(in->out), norm, act,
+    conv3(out->out), avgpool2."""
+
+    def __init__(self, in_dims: int, out_dims: int, first_block: bool = False,
+                 norm: str = "bn", activation: str = "relu", ndim: int = 2):
+        super().__init__()
+        self.first_block = first_block
+        self.ndim = ndim
+        mid = "NormAct_0"
+        if not first_block:
+            self.NormAct_0 = NormAct(in_dims, norm, activation)
+            mid = "NormAct_1"
+        self.Conv_0 = Conv(in_dims, out_dims, 3, ndim=ndim)
+        setattr(self, mid, NormAct(out_dims, norm, activation))
+        self.mid_norm = mid
+        self.Conv_1 = Conv(out_dims, out_dims, 3, ndim=ndim)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if not self.first_block:
+            x = self.NormAct_0(x, train)
+        x = self.Conv_0(x)
+        x = getattr(self, self.mid_norm)(x, train)
+        return _avg_pool(self.Conv_1(x), self.ndim)
 
 
 class ResidualDiscriminatorBlock(RematBlock):

@@ -1,6 +1,6 @@
 """Shared layer primitives: norms, activations, convs (NCHW; NCL in 1-D).
 
-Counterpart of ``tartangan_tpu/models/layers.py:24-109``. Submodules keep
+Counterpart of ``tartangan_tpu/models/layers.py:24-122``. Submodules keep
 the flax module names (``BatchNorm_0``, ``Conv_0``, ...) as attribute names,
 so ``convert.py`` maps a flax tree onto a ``state_dict`` by renaming paths.
 
@@ -122,6 +122,18 @@ class NormAct(nn.Module):
         if hasattr(self, "BatchNorm_0"):
             x = self.BatchNorm_0(x, train)
         return self.act(x)
+
+
+class PixelNorm(nn.Module):
+    """x / sqrt(mean(x^2 over channels) + eps), the channels being dim 1
+    (``layers.py:112-120``, whose NHWC channels are the last axis)."""
+
+    def __init__(self, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x / torch.sqrt(x.square().mean(dim=1, keepdim=True) + self.eps)
 
 
 class _Conv2d(nn.Conv2d):

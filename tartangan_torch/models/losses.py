@@ -1,6 +1,6 @@
-"""GAN losses: BCE-with-logits and the R1 gradient penalty.
+"""GAN losses: BCE-with-logits, hinge and the R1 gradient penalty.
 
-Counterparts of ``tartangan_tpu/models/losses.py:15-21`` and ``:36-51``;
+Counterparts of ``tartangan_tpu/models/losses.py:15-35`` and ``:36-51``;
 the IQN loss is ``models/iqn.py::iqn_loss``.
 """
 from __future__ import annotations
@@ -23,6 +23,18 @@ def bce_with_logits(logits: torch.Tensor,
     loss = (logits.clamp(min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
     return loss.mean()
+
+
+def discriminator_hinge_loss(real: torch.Tensor, fake: torch.Tensor):
+    """(mean relu(1 - real), mean relu(1 + fake)), in float32 (float64 for
+    float64 logits)."""
+    return (torch.relu(1.0 - _f32(real)).mean(),
+            torch.relu(1.0 + _f32(fake)).mean())
+
+
+def generator_hinge_loss(fake: torch.Tensor) -> torch.Tensor:
+    """-mean(fake), in float32 (float64 for float64 logits)."""
+    return -_f32(fake).mean()
 
 
 def r1_gradient_penalty(d_apply_fn, real: torch.Tensor):

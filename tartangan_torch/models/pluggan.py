@@ -23,13 +23,43 @@ from torch import nn
 from ..configs import GANConfig
 from .attention import SelfAttention2d
 from .blocks import (
+    DiscriminatorBlock,
     DiscriminatorInput,
+    DiscriminatorOutput,
+    GeneratorBlock,
     GeneratorOutput,
     ParityDiscriminatorInput,
     ParityGeneratorOutput,
     ParityResidualDiscriminatorBlock,
     ParityResidualGeneratorBlock,
+    TiledZGeneratorInput,
 )
+
+
+# the factories a model takes when it is given none (``pluggan.py:33-57``)
+def _default_g_input(latent_dims, output_dims, size):
+    return TiledZGeneratorInput(latent_dims, output_dims, size)
+
+
+def _default_g_block(in_dims, out_dims, *, first_block=False, upsample=True):
+    return GeneratorBlock(in_dims, out_dims, upsample=upsample,
+                          first_block=first_block)
+
+
+def _default_g_output(in_dims, out_dims):
+    return GeneratorOutput(in_dims, out_dims)
+
+
+def _default_d_input(in_dims, out_dims):
+    return DiscriminatorInput(in_dims, out_dims)
+
+
+def _default_d_block(in_dims, out_dims, *, first_block=False):
+    return DiscriminatorBlock(in_dims, out_dims, first_block=first_block)
+
+
+def _default_d_output(in_dims, out_dims):
+    return DiscriminatorOutput(in_dims, out_dims)
 
 
 def _chain_parity_d_blocks(blocks):
@@ -47,17 +77,22 @@ def _chain_parity_d_blocks(blocks):
 class Generator(nn.Module):
     """Upsampling stack: input -> per-scale blocks (+SA) -> output.
 
-    The factories come from ``models/factories.py``; the JAX package's
-    defaults (``TiledZGeneratorInput`` with the non-residual
-    ``GeneratorBlock``) are not ported.
+    The factories come from ``models/factories.py``; a factory not given
+    takes the JAX package's default (``TiledZGeneratorInput``, the
+    non-residual ``GeneratorBlock``, ``GeneratorOutput``).
     """
 
-    def __init__(self, config: GANConfig, input_factory: Callable,
-                 block_factory: Callable, output_factory: Callable,
+    def __init__(self, config: GANConfig,
+                 input_factory: Callable | None = None,
+                 block_factory: Callable | None = None,
+                 output_factory: Callable | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        input_factory = input_factory or _default_g_input
+        block_factory = block_factory or _default_g_block
+        output_factory = output_factory or _default_g_output
 
         self.input_block = input_factory(config.latent_dims, config.blocks[0],
                                          config.base_size)
@@ -111,17 +146,23 @@ class Discriminator(nn.Module):
     ``reversed(config.blocks)`` (+SA after ``block_i in config.attention``)
     -> output head with one logit.
 
-    The JAX package's default block (the non-residual
-    ``DiscriminatorBlock``) is not ported; the trainer always passes the
-    residual factory, as the JAX trainer does.
+    A factory not given takes the JAX package's default
+    (``DiscriminatorInput``, the non-residual ``DiscriminatorBlock``,
+    ``DiscriminatorOutput``); the trainers pass the residual factory, as
+    the JAX trainers do.
     """
 
-    def __init__(self, config: GANConfig, input_factory: Callable,
-                 block_factory: Callable, output_factory: Callable,
+    def __init__(self, config: GANConfig,
+                 input_factory: Callable | None = None,
+                 block_factory: Callable | None = None,
+                 output_factory: Callable | None = None,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        input_factory = input_factory or _default_d_input
+        block_factory = block_factory or _default_d_block
+        output_factory = output_factory or _default_d_output
         in_dims = config.blocks[-1]
         input_block = input_factory(config.data_dims, in_dims)
         blocks = []

@@ -29,8 +29,13 @@ Function applied inside a backward run with ``create_graph=True`` like any
 other op, so two are enough.
 
 Outside autograd (no input requires a gradient, or grad mode is off, as
-when serving) ``attention`` runs K1 without the lse store. The public
-``attention_bwd(q, k, v, do)`` runs K1 for (o, lse) and then K2.
+when serving) ``attention`` calls the custom op ``torch.ops.tartangan.
+attention``: its CUDA implementation launches K1 without the lse store,
+its CPU implementation is ``attention_plain``, and its fake implementation
+gives the output's shape, so ``torch.export`` records the op by name
+(``export/web.py``) and a loaded program launches K1 when it runs on the
+card. The public ``attention_bwd(q, k, v, do)`` runs K1 for (o, lse) and
+then K2.
 
 For CUDA tensors the wrappers launch the kernels or raise; for CPU tensors
 the same code runs the plain versions (``attention_plain`` with
@@ -246,14 +251,32 @@ class _Attention(torch.autograd.Function):
         return _AttentionBwd.apply(q, k, v, do.contiguous(), o.detach(), lse)
 
 
+@torch.library.custom_op("tartangan::attention", mutates_args=(),
+                         device_types="cuda")
+def attention_op(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T) v without a gradient: K1, without the lse store."""
+    return _fwd(q, k, v, with_lse=False)[0]
+
+
+@attention_op.register_kernel("cpu")
+def _attention_op_cpu(q, k, v):
+    return attention_plain(q, k, v)
+
+
+@attention_op.register_fake
+def _attention_op_fake(q, k, v):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v, differentiable: the CUDA kernels for CUDA tensors,
-    the plain versions for CPU tensors."""
+    the plain versions for CPU tensors; outside autograd, the custom op."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Attention.apply(q, k, v)
-    return _fwd(q, k, v, with_lse=False)[0]
+    return attention_op(q, k, v)
 
 
 def attention_bwd(q, k, v, do):

@@ -22,7 +22,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from .explore.base import GOutputApp
+from .explore.base import GOutputApp, add_device_arg
 from .utils.imaging import encode_png, make_grid, to_uint8
 from .utils.slerp import slerp_grid
 
@@ -61,8 +61,7 @@ class _ServeApp(GOutputApp):
         p.add_argument("--host", default="127.0.0.1")
         p.add_argument("--trunc-norm", type=float, default=None)
         p.add_argument("--no-target", action="store_true")
-        p.add_argument("--device", default="cuda",
-                       help="torch device to run the generator on")
+        add_device_arg(p)
 
 
 def make_handler(app: _ServeApp):

@@ -12,16 +12,10 @@ import os
 
 import numpy as np
 
-from ...utils.fs import maybe_makedirs, smart_open
-from ...utils.imaging import encode_png, make_grid, to_uint8
+from ...utils.fs import maybe_makedirs
+from ...utils.imaging import save_image
 from ...utils.slerp import slerp_grid
 from .base import TrainerComponent
-
-
-def save_image(images, path, nrow=8):
-    """A batch of NHWC float images in [-1, 1] as one PNG grid."""
-    with smart_open(path, "wb") as out:
-        out.write(encode_png(make_grid(to_uint8(images), nrow=nrow)))
 
 
 class ImageSamplerComponent(TrainerComponent):

@@ -13,7 +13,8 @@ import os
 
 import numpy as np
 
-from .image_sampler import ImageSamplerComponent, save_image
+from ...utils.imaging import save_image
+from .image_sampler import ImageSamplerComponent
 
 
 class InfoImageSamplerComponent(ImageSamplerComponent):

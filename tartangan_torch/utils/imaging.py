@@ -11,6 +11,8 @@ import zlib
 
 import numpy as np
 
+from .fs import smart_open
+
 
 def to_uint8(images, value_range=(-1.0, 1.0)):
     """Normalize NHWC float images from ``value_range`` to uint8 [0, 255]."""
@@ -67,3 +69,14 @@ def encode_png(arr) -> bytes:
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def save_image(images, path, nrow=8, value_range=(-1.0, 1.0)):
+    """A batch of NHWC float images in ``value_range`` (or one HWC image)
+    as one PNG grid (``tartangan_tpu/utils/imaging.py::save_image``)."""
+    images = np.asarray(images, dtype=np.float32)
+    if images.ndim == 3:
+        images = images[None]
+    grid = make_grid(to_uint8(images, value_range), nrow=nrow)
+    with smart_open(str(path), "wb") as out:
+        out.write(encode_png(grid))

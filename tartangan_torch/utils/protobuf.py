@@ -1,9 +1,10 @@
 """Minimal protobuf wire-format writer (and field walker).
 
 A copy of ``tartangan_tpu/utils/protobuf.py``, for the TensorBoard event
-writer (``utils/tb_events.py``): the scalar subset of the public Event
-schema is small enough that hand-encoding beats depending on generated
-bindings (no protoc output to vendor, no tensorflow dependency).
+writer (``utils/tb_events.py``) and the ONNX exporter (``export/onnx.py``)
+and its interpreter (``export/onnx_eval.py``): the subsets of those public
+schemas are small enough that hand-encoding beats depending on generated
+bindings (no protoc output to vendor, no tensorflow or onnx dependency).
 
 Wire types: 0 varint, 1 fixed64, 2 length-delimited, 5 fixed32.
 """
@@ -42,6 +43,19 @@ def int_field(number: int, value: int) -> bytes:
 
 def bytes_field(number: int, value: bytes) -> bytes:
     return field_header(number, 2) + varint(len(value)) + value
+
+
+def string_field(number: int, value: str) -> bytes:
+    return bytes_field(number, value.encode("utf-8"))
+
+
+def packed_ints_field(number: int, values) -> bytes:
+    return bytes_field(number, b"".join(varint(v) for v in values))
+
+
+def packed_floats_field(number: int, values) -> bytes:
+    return bytes_field(number, b"".join(
+        struct.pack("<f", v) for v in values))
 
 
 # --------------------------------------------------------------- reading
