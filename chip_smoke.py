@@ -148,9 +148,10 @@ printing a result:
    ``--r1-interval 2``, R1 (gp > 0) on exactly steps 0, 2 and 4, from 2
    graphs; one call after the capture under
    ``set_sync_debug_mode("error")`` and a profiled one with no
-   host-to-device copy. Then '128' timed three ways in each dtype (the
+   host-to-device copy. Then '128' timed three ways in bfloat16 (the
    host archive at K = 1 with its pinned copy, ``--device-data`` at K = 1,
-   and at K = 4 replayed; float32 once, bfloat16 twice in turns): per
+   and at K = 4 replayed, twice in turns; float32, timed so in PRs 11-14,
+   cut for phase 15's time): per
    step, images/s, and from one more unit the peak memory with the
    graph's pool and the idle share (eager: a profile, with host launch
    calls; a replay: CUDA events). Then the '512thin' parity path of phase
@@ -171,8 +172,9 @@ printing a result:
    phase 11: '1024' at full width, B 16, ``--dtype bf16``, R1 every step,
    on a synthetic 1024x1024 archive of 64 tartans, 2 steps each through
    ``create_from_cli`` and ``.train()`` (interrupted after the second, as
-   Ctrl-C ends a run) without remat and with ``--remat`` under 'full',
-   'convs' and 'dots': finite losses, K1/K2 launches a step (the counts
+   Ctrl-C ends a run) without remat and with ``--remat`` under 'full' and
+   'convs', and one step under 'dots' (depth cut for phase 15's time):
+   finite losses, K1/K2 launches a step (the counts
    set to 0 before each run), peak memory, step time, images/s, and the
    first step's losses within TOL_REMAT_LOSS of the run without remat
    (only the run without remat writes sample PNGs);
@@ -230,13 +232,32 @@ printing a result:
    the numpy interpreter matches G's eval-mode output; sizes and times.
    The attention's gamma is set to 0.5 where a held comparison needs it
    to count (3 training steps leave it near its init value, 0).
+15. the device mesh, the calibration and the native crop. '512thin' at full
+   width, float32 (TF32 off), R1 every step, on 8 of phase 6's tartans:
+   the trainer's CLI with --num-devices 1 in a process of its own, 2
+   steps; then one step of the global batch of 8 in this process (the
+   reference: the trainer's build, its components' train begin and its
+   step, the draws of the entry points), on 2 gloo ranks sharing the card
+   (``parallel.mesh.launch``, dp 2, through ``.train()``), on the same 2
+   ranks re-grouped with --tp 2, and through the mesh path on an NCCL
+   group of one in this process: each held against the reference at
+   TOL_MESH (the JAX package's mesh tolerances, and both towers'
+   gradients against the reference's), every rank launching K1
+   and K2 as the reference's step does (counted in the step), the step and
+   one more timed (tp 2: the step); a one-process trainer resumes the dp-2
+   run's checkpoint bit for bit. Then ``eval.calibrate`` on phase
+   10's 2176 128px tartans at B 16, every level, and its CLI with
+   --validate --validate-n 256 (the three FIDs finite and ordered, the
+   seconds); then the native crop batcher against numpy, byte for byte,
+   and its host time for a B 64 batch of 512x512 (and 384x384) crops.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2's launches in phase 14's find_image run under
 ``launches_find``; K1/K2 at the G shape with the D shape's times under
 ``shape_d``, K1's serving shapes under ``shape_serve``, config '1024''s
-shapes in both dtypes under ``shape_1024`` and the scene generator's under
-``shape_scene`` (``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
+shapes in both dtypes under ``shape_1024``, the scene generator's under
+``shape_scene`` and K1/K2's launches per rank in phase 15's steps under
+``launches_mesh`` (``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
 plain version and SDPA fit); K3-K5's times
 summed over the launches of one G forward; each record's ``dtypes`` and,
 under ``bf16``, its bfloat16 numbers and the bfloat16 parity path's
@@ -252,6 +273,7 @@ import ctypes
 import faulthandler
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -3609,7 +3631,9 @@ def phase_dispatch(archive, smi):
         hold_graph(f"'128' B128 {dtype} K4", t)
         if dtype == "f32":
             hold_adam(list(t.state.g.parameters()), t.args.lr_g)
-        k4[dtype] = t
+            del t  # only bfloat16 is timed below
+        else:
+            k4[dtype] = t
         lap(f"'128' {dtype} K4: 2 calls and the hold")
     # lazy R1 every 2 steps at K = 3: two patterns, R1 on steps 0, 2, 4
     t = dispatch_trainer(big, "r1", "--dtype", "bf16", "--device-data",
@@ -3648,9 +3672,10 @@ def phase_dispatch(archive, smi):
     del prof
     lap("R1 cadence, sync and H2D checks")
 
-    # times: the host archive at K = 1, --device-data at K = 1 and K = 4;
-    # float32 once (its turns differed by under 0.1 %), bfloat16 3 turns
-    for dtype, reps in (("f32", 1), ("bf16", 2)):
+    # times: the host archive at K = 1, --device-data at K = 1 and K = 4,
+    # in bfloat16 (float32, cut for phase 15's time, was timed in PRs 11-14:
+    # PERF.md)
+    for dtype, reps in (("bf16", 2),):
         t1 = dispatch_trainer(big, f"k1_{dtype}", "--dtype", dtype,
                               "--device-data", "--epochs", "0")
         t1.train()
@@ -3927,10 +3952,11 @@ def finite_logs(trainer, keys, steps):
     return losses
 
 
-def run_1024(archive, label, batch_size, *extra, samples=True):
+def run_1024(archive, label, batch_size, *extra, samples=True, steps=2):
     """'1024' at full width, bfloat16, R1 every step, through
-    ``create_from_cli`` and ``.train()``, 2 steps (interrupted after the
-    second); then one step without R1 on its state, for its peak memory.
+    ``create_from_cli`` and ``.train()``, ``steps`` steps (interrupted
+    after the last); then one step without R1 on its state, for its peak
+    memory.
     ``samples=False`` skips the sample PNGs (after the first step and at
     the end, ~9 s each at 1024² on an H100), which the run without remat
     writes; the sampler's latent draws go with them, so the second step's
@@ -3950,9 +3976,9 @@ def run_1024(archive, label, batch_size, *extra, samples=True):
         for component in trainer.components.components:
             if isinstance(component, ImageSamplerComponent):
                 component.output_samples = lambda filename: None
-    per_step, times, wall, peak, held = run_counted(trainer, label, stop=2)
-    assert len(per_step) == 2, per_step
-    steps = len(per_step)
+    per_step, times, wall, peak, held = run_counted(trainer, label,
+                                                    stop=steps)
+    assert len(per_step) == steps, per_step
     assert trainer.gan_config.blocks == (512, 512, 512, 256, 128, 64, 32, 16)
     losses = finite_logs(trainer, ("g_loss", "d_loss", "gp"), steps)
     ms = times[-1]
@@ -3987,10 +4013,11 @@ def run_1024(archive, label, batch_size, *extra, samples=True):
 
 def phase_1024():
     """'1024' at full width, B 16, bfloat16, R1 every step, 2 steps each
-    without remat and with ``--remat`` under 'full', 'convs' and 'dots';
-    the first step's losses held against the run without remat
-    (TOL_REMAT_LOSS). Then the largest batch of {32, 48, 64} that 'convs'
-    is reckoned to fit (FIT_SHARE), 2 steps at it."""
+    without remat and with ``--remat`` under 'full' and 'convs', one step
+    under 'dots' (depth cut for phase 15's time); the first step's losses
+    held against the run without remat (TOL_REMAT_LOSS). Then the largest
+    batch of {32, 48, 64} that 'convs' is reckoned to fit (FIT_SHARE), 2
+    steps at it."""
     from tartangan_torch.data.synthetic import make_archive
     P12_DIR.mkdir(parents=True, exist_ok=True)
     archive = P12_DIR / "tartans1024.npy"
@@ -4001,13 +4028,12 @@ def phase_1024():
         f"{time.perf_counter() - t0:.1f} s")
     del images
     runs = {}
-    for way, flags in (("no remat", ()), ("remat full", ("--remat",)),
-                       ("remat convs", ("--remat", "--remat-policy",
-                                        "convs")),
-                       ("remat dots", ("--remat", "--remat-policy",
-                                       "dots"))):
+    for way, flags, steps in (
+            ("no remat", (), 2), ("remat full", ("--remat",), 2),
+            ("remat convs", ("--remat", "--remat-policy", "convs"), 2),
+            ("remat dots", ("--remat", "--remat-policy", "dots"), 1)):
         runs[way] = run_1024(archive, way.replace(" ", "_"), 16, *flags,
-                             samples=not flags)
+                             samples=not flags, steps=steps)
     base = runs["no remat"]["losses"]
     for way, run in runs.items():
         for k in base:
@@ -4793,6 +4819,316 @@ def phase_apps(dev):
 
 
 
+
+# ---------------------------------------------------------------- phase 15
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_BATCH = 8
+# the JAX package's mesh tolerances (tests/test_distributed_equivalence.py):
+# metrics, G's parameters after Adam's first step (+-lr x sign(g), and a
+# gradient near 0 may take the other sign in another summation order), D's
+# running statistics. Those bound Adam's step, not the gradient, so the
+# gradients themselves (Adam's first moments: beta1 is 0) are held too, as
+# max |diff| over the tower's largest |gradient| (``grad_err``). Float32
+# readings on an H100 (dp 2, tp 2, NCCL world 1): D's, taken before any
+# update, 6.4e-5 to 1.25e-4 (R1's second-order term on top of another
+# batch split or another BatchNorm reduction: NCCL world 1 reads 1.2e-4);
+# G's 6.3e-3 to 8.1e-3, as they also follow D's first update, whose +-lr
+# steps on near-0 gradients may go either way (1.9e-3 without it). A
+# gradient summed over the wrong group or scaled by the ranks reads O(1)
+TOL_MESH = {"loss": 1e-3, "g": 5e-4, "d_stats": 1e-3, "d_grad": 1e-3,
+            "g_grad": 5e-2}
+
+
+def mesh_argv(archive, run_id, *extra):
+    return [str(archive), "--config", "512thin", "--batch-size",
+            str(MESH_BATCH), "--epochs", "1", "--dtype", "f32", "--device",
+            "cuda", "--run-id", run_id, "--output", str(MESH_DIR / "out"),
+            "--gen-freq", "1000", "--checkpoint-freq", "1000",
+            "--quiet-logs", "--seed", "5", *extra]
+
+
+def mesh_rank_run(argv, entry=True, reps=1):
+    """One step of the CNN trainer on this rank (or the one process), with
+    K1/K2 counted where the step launches them and its time (``first_ms``),
+    then ``reps`` more steps timed (``step_ms``); host clock around a device
+    sync, every rank at once.
+    ``entry``: through ``create_from_cli`` and ``.train()`` (samples and a
+    checkpoint at the end); else the trainer's build, its components'
+    train begin (the image sampler's draws) and its step on the first
+    global batch, without the end's sampling (whose gathers dominate a
+    ``--tp`` run on gloo). Rank 0 returns the metrics, G's parameters, D's
+    statistics and both towers' gradients (gathered from the model group's
+    slices), every rank's K1/K2 launches in the step, and the times."""
+    import torch.distributed as dist
+
+    from tartangan_torch.data.prefetch import EpochBatcher
+    from tartangan_torch.ops.attention import attention, attention_bwd
+    from tartangan_torch.parallel import collectives as C
+    from tartangan_torch.parallel import mesh as M
+    from tartangan_torch.train.cnn import CNNTrainer
+    from tartangan_torch.utils.scalars import last_scalar
+    trainer = CNNTrainer.create_from_cli(argv)
+    counts = []
+    train_batch = trainer.train_batch
+
+    first = []
+
+    def counted(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = (attention.launches, attention_bwd.launches)
+        metrics = train_batch(batch)
+        counts.append((attention.launches - before[0],
+                       attention_bwd.launches - before[1]))
+        torch.cuda.synchronize()
+        first.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+    if entry:
+        trainer.train_batch = counted
+        trainer.train()
+        assert trainer.steps == 1, trainer.steps
+        logs = {k: last_scalar(v[-1]) for k, v in trainer.logs.items()}
+    else:
+        trainer.build_models()
+        trainer._setup_mesh_state()
+        trainer.dataset = trainer.prepare_dataset()
+        trainer.components.invoke("train_begin", 0, {})
+        host = next(EpochBatcher(trainer.dataset, MESH_BATCH,
+                                 seed=trainer.args.seed).epoch())
+        metrics = C.sum_metrics(counted(torch.from_numpy(
+            trainer.shard(host)).to(trainer.device)))
+        logs = {k: float(v) for k, v in metrics.items()}
+    art = trainer.checkpoint_artifacts()
+    mesh = M.current()
+    batch = trainer.shard(torch.from_numpy(
+        trainer.dataset.images[:MESH_BATCH]).to(trainer.device))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_batch(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_rank = [counts]
+    if mesh is not None:
+        per_rank = [None] * mesh.world
+        dist.all_gather_object(per_rank, counts)
+    if not M.is_writer():
+        return None
+    return {"logs": logs, "g": art["g"]["params"],
+            "d_stats": art["d"]["batch_stats"],
+            "g_grad": art["opt_g"]["0"]["mu"],
+            "d_grad": art["opt_d"]["0"]["mu"], "launches": per_rank,
+            "first_ms": first[0], "step_ms": times,
+            "backend": None if mesh is None else mesh.backend}
+
+
+def mesh_pair(argv_dp, argv_tp):
+    """A rank of the two that share the card: dp 2 through the entry
+    points, then the same two processes re-grouped as tp 2."""
+    from tartangan_torch.parallel import mesh as M
+    dp = mesh_rank_run(argv_dp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    M.make_mesh(2, tp=2, device_type="cuda", share_device=True)
+    tp = mesh_rank_run(argv_tp, entry=False, reps=0)
+    return (dp, tp) if M.is_writer() else None
+
+
+def _tree_max_err(a, b, prefix=""):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), prefix
+        return max((_tree_max_err(a[k], b[k], f"{prefix}/{k}") for k in a),
+                   default=0.0)
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _tree_max_abs(tree):
+    if isinstance(tree, dict):
+        return max((_tree_max_abs(v) for v in tree.values()), default=0.0)
+    return float(np.abs(np.asarray(tree, np.float64)).max())
+
+
+def grad_err(run, ref):
+    """max |run - ref| over ``ref``'s largest |gradient| (a conv bias that
+    a BatchNorm follows has a gradient of rounding noise: its own scale is
+    no measure)."""
+    return _tree_max_err(run, ref) / _tree_max_abs(ref)
+
+
+def hold_mesh(label, run, ref):
+    """``run`` against the one-process ``ref`` at TOL_MESH; every rank
+    launched K1 and K2 as the one-process step does."""
+    loss = max(abs(run["logs"][k] - ref["logs"][k])
+               for k in ("g_loss", "d_loss", "gp"))
+    errs = {"g": _tree_max_err(run["g"], ref["g"]),
+            "d_stats": _tree_max_err(run["d_stats"], ref["d_stats"]),
+            "d_grad": grad_err(run["d_grad"], ref["d_grad"]),
+            "g_grad": grad_err(run["g_grad"], ref["g_grad"])}
+    log(f"mesh: {label} ({run['backend']}) against one process: losses "
+        f"{run['logs']} vs {ref['logs']}; max |loss err| {loss:.3e} (tol "
+        f"{TOL_MESH['loss']}), G params {errs['g']:.3e} (tol "
+        f"{TOL_MESH['g']}), D stats {errs['d_stats']:.3e} (tol "
+        f"{TOL_MESH['d_stats']}), D grads {errs['d_grad']:.3e} and G grads "
+        f"{errs['g_grad']:.3e} of the largest (tol {TOL_MESH['d_grad']}, "
+        f"{TOL_MESH['g_grad']}; largest {_tree_max_abs(ref['d_grad']):.4e}, "
+        f"{_tree_max_abs(ref['g_grad']):.4e}); K1/K2 launches per "
+        f"rank in the step {run['launches']}; the step {run['first_ms']:.1f} "
+        f"ms, then {run['step_ms']} ms (host clock, every rank at once)")
+    if not (loss < TOL_MESH["loss"]
+            and all(errs[k] < TOL_MESH[k] for k in errs)):
+        raise AssertionError(f"mesh: {label} does not hold against one "
+                             "process")
+    for counts in run["launches"]:
+        if counts != ref["launches"][0]:
+            raise AssertionError(f"mesh: {label}: a rank launched K1/K2 "
+                                 f"{counts}, one process "
+                                 f"{ref['launches'][0]}")
+
+
+def mesh_resume(archive, run_id):
+    """A one-process trainer resumes ``run_id``'s checkpoint (written by a
+    mesh; its checkpoint component's train begin) and holds exactly what
+    it wrote."""
+    from tartangan_torch.train.cnn import CNNTrainer
+    from tartangan_torch.utils import msgpack
+    ckpt = MESH_DIR / "out" / run_id / "checkpoints" / "1"
+    names = ("g", "g_target", "d", "opt_g", "opt_d")
+    saved = {name: msgpack.loads((ckpt / f"{name}.msgpack").read_bytes())
+             for name in names}
+    t = CNNTrainer.create_from_cli(mesh_argv(
+        archive, run_id, "--resume-training-latest"))
+    t.build_models()
+    t.components.invoke("train_begin", 0, {})
+    assert t.steps == 1, t.steps
+    mine = t.checkpoint_artifacts()
+    for name in names:
+        err = _tree_max_err(mine[name], saved[name])
+        if err != 0:
+            raise AssertionError(f"mesh: resumed {name} is {err} off")
+    log(f"mesh: a one-process trainer resumed {ckpt} bit for bit")
+
+
+def phase_calibrate(data128):
+    """``eval.calibrate``'s CLI on synthetic 128px tartans at B 16, every
+    level, then --validate --validate-n 256, on the card."""
+    from tartangan_torch.eval import calibrate
+    npz = MESH_DIR / "tartans128.npz"
+    np.savez(npz, images=np.load(data128))
+    out = MESH_DIR / "calibrated.npz"
+    t0 = time.perf_counter()
+    model = calibrate.calibrate_variables(np.load(npz)["images"],
+                                          batch_size=16, device="cuda")
+    calibrate.save_stats_npz(model, out)
+    t_cal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checks = calibrate.main([str(npz), str(out), "--batch-size", "16",
+                             "--validate", "--validate-n", "256",
+                             "--device", "cuda"])
+    t_cli = time.perf_counter() - t0
+    log(f"calibrate: every level at B 16 in {t_cal:.1f} s (host clock); the "
+        f"CLI with --validate --validate-n 256 in {t_cli:.1f} s: {checks}")
+    fids = [checks[k] for k in ("fid_holdout", "fid_blurred", "fid_noise")]
+    assert all(np.isfinite(fids)), checks
+    if not checks["ordered"]:
+        raise AssertionError(f"calibrate: the FIDs are not ordered {checks}")
+
+
+def phase_native_crop(archive):
+    """The native batcher against numpy on the 512px archive: byte-equal,
+    and the host time of one B 64 batch of 512x512 crops (and of 384x384
+    crops at random offsets)."""
+    from tartangan_torch import native
+    images = np.load(archive)
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, len(images), 64)
+    for size in (512, 384):
+        hi = images.shape[1] - size + 1
+        ys = rng.integers(0, hi, 64).astype(np.int32)
+        xs = rng.integers(0, hi, 64).astype(np.int32)
+        ours = native.crop_batch(images, idx, ys, xs, size)
+        plain = native.crop_batch_plain(images, idx, ys, xs, size)
+        if not np.array_equal(ours, plain):
+            raise AssertionError(f"native crop {size} differs from numpy")
+        t_native = host_ms(lambda: native.crop_batch(images, idx, ys, xs,
+                                                     size))
+        t_plain = host_ms(lambda: native.crop_batch_plain(images, idx, ys,
+                                                          xs, size))
+        log(f"native crop: B 64 of {size}x{size} from the {images.shape} "
+            f"archive byte-equal to numpy; host {t_native:.3f} ms vs "
+            f"numpy {t_plain:.3f} ms ({os.cpu_count()} cores)")
+
+
+def phase_mesh(data128):
+    """Phase 15: the device mesh on the card, the calibration and the
+    native crop. Returns the K1/K2 launches per rank of each mesh step."""
+    from tartangan_torch.parallel import mesh as M
+    t15 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    archive = MESH_DIR / "tartans512x8.npy"
+    np.save(archive, np.load(TRAIN_DIR / "tartans512.npy")[:MESH_BATCH])
+
+    # (d) the CLI in a process of its own: 2 steps on one card
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "tartangan_torch.train.cnn",
+                    *mesh_argv(archive, "cli", "--num-devices", "1",
+                               "--epochs", "2")],
+                   check=True, cwd=ROOT, stdout=subprocess.DEVNULL)
+    assert (MESH_DIR / "out" / "cli" / "checkpoints" / "2"
+            / "g.msgpack").is_file()
+    log(f"mesh: the trainer's CLI with --num-devices 1 took 2 steps in "
+        f"{time.perf_counter() - t0:.1f} s (a process of its own)")
+
+    lap = time.perf_counter()
+    # the references and the NCCL run take the step without the entry
+    # points' end (samples, checkpoint); the draws are the same
+    ref = mesh_rank_run(mesh_argv(archive, "one"), entry=False)
+    log(f"mesh: the one-process reference took "
+        f"{time.perf_counter() - lap:.1f} s")
+    # (a) data parallelism through the launcher, 2 gloo ranks sharing the
+    # card; (b) the same ranks as tensor parallelism
+    lap = time.perf_counter()
+    dp2, tp2 = M.launch(
+        mesh_pair, 2, (mesh_argv(archive, "dp2", "--num-devices", "2"),
+                       mesh_argv(archive, "tp2", "--num-devices", "2",
+                                 "--tp", "2")),
+        device_type="cuda", share_device=True)
+    log(f"mesh: the two ranks (start, dp 2, tp 2) took "
+        f"{time.perf_counter() - lap:.1f} s")
+    hold_mesh("dp 2", dp2, ref)
+    # the tp run's draws and batch are the entry points' (the components'
+    # train begin draws first)
+    hold_mesh("tp 2", tp2, ref)
+    mesh_resume(archive, "dp2")
+    # (c) the mesh path on an NCCL group of one, in this process
+    M.make_mesh(1, device_type="cuda",
+                init_method=f"file://{MESH_DIR / 'nccl_rdzv'}", rank=0)
+    try:
+        nccl = mesh_rank_run(mesh_argv(archive, "nccl1", "--num-devices",
+                                       "1"), entry=False)
+    finally:
+        M.teardown()
+    assert nccl["backend"] == "nccl", nccl["backend"]
+    hold_mesh("NCCL world 1", nccl, ref)
+    log(f"mesh: step times (ms, host clock; the counted step, then one "
+        f"more): one process {ref['first_ms']:.1f}, {ref['step_ms']}; NCCL "
+        f"world 1 {nccl['first_ms']:.1f}, {nccl['step_ms']}; dp 2 sharing "
+        f"the card {dp2['first_ms']:.1f}, {dp2['step_ms']}; tp 2 sharing the "
+        f"card {tp2['first_ms']:.1f}")
+    t_mesh = time.perf_counter() - t15
+
+    phase_calibrate(data128)
+    phase_native_crop(TRAIN_DIR / "tartans512.npy")
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s ({t_mesh:.1f} s "
+        "of it the mesh)")
+    names = ("attention_fwd", "attention_bwd")
+    return {name: {label: [c[0][i] for c in run["launches"]]
+                   for label, run in (("dp2", dp2), ("tp2", tp2),
+                                      ("nccl1", nccl))}
+            for i, name in enumerate(names)}
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
@@ -4921,6 +5257,10 @@ def main():
         torch.cuda.empty_cache()
         launches_find = phase_apps(dev)
         done("phase 14")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches_mesh = phase_mesh(EVAL_DIR / "tartans128.npy")
+        done("phase 15")
         k3_k5 = ("parity_conv", "gblock_a", "gblock_b")
         for rec in records:
             name = rec["name"]
@@ -4933,6 +5273,8 @@ def main():
                 rec["shape_scene"] = shape_scene[name]
             if name in launches_find:
                 rec["launches_find"] = launches_find[name]
+            if name in launches_mesh:
+                rec["launches_mesh"] = launches_mesh[name]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

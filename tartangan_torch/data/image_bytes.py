@@ -4,8 +4,10 @@ Counterpart of ``tartangan_tpu/data/image_bytes.py``: an ``.npz`` with an
 ``images`` array of shape (N, H, W, C) uint8 (or an ``.npy``) lives in host
 memory, and each batch is a random crop in numpy, drawn from the caller's
 ``np.random.Generator`` in the same order as there, so a seed gives the JAX
-trainer's batches. Batches stay uint8 until the train step normalizes them
-on the device. The native crop library is not ported.
+trainer's batches. The gather and the crops run in the port's C++ batcher
+(``native/``, built with ``g++`` at first use; a failed build raises), as
+the JAX package's loader does. Batches stay uint8 until the train step
+normalizes them on the device.
 
 The prep CLI LANCZOS-resizes a folder of images into such an archive, the
 same arrays as the JAX package's CLI writes; it needs Pillow, which only
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..utils.fs import list_files_recursive, smart_open
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm",
@@ -42,7 +45,7 @@ class ImageBytesDataset:
         if images.dtype != np.uint8 or images.ndim != 4:
             raise ValueError("ImageBytesDataset takes (N, H, W, C) uint8, "
                              f"got {images.shape} {images.dtype}")
-        self.images = images
+        self.images = np.ascontiguousarray(images)
         self.crop_size = crop_size
 
     def __len__(self):
@@ -53,18 +56,16 @@ class ImageBytesDataset:
         return self.crop_size or self.images.shape[1]
 
     def batch(self, indices: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-        """Gather + random-crop a batch (uint8 NHWC)."""
+        """Gather + random-crop a batch (uint8 NHWC) in the native batcher;
+        the offsets are drawn from ``rng`` as the JAX package draws them."""
         _, h, w, _ = self.images.shape
         size = self.crop_size
         if size is None or (h == size and w == size):
-            return self.images[indices]
+            return native.gather_batch(self.images, indices)
         n = len(indices)
         ys = rng.integers(0, h - size + 1, size=n)
         xs = rng.integers(0, w - size + 1, size=n)
-        out = np.empty((n, size, size, self.images.shape[3]), dtype=np.uint8)
-        for i, idx in enumerate(indices):
-            out[i] = self.images[idx, ys[i]:ys[i] + size, xs[i]:xs[i] + size]
-        return out
+        return native.crop_batch(self.images, indices, ys, xs, size)
 
     @classmethod
     def from_path(cls, path, crop_size: int | None = None):

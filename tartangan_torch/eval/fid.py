@@ -120,8 +120,10 @@ def prepare_inception_metrics(moments_path, device="cuda", weights=None):
     sample_fn, num_inception_images, num_splits=10)`` -> (IS mean, IS std,
     FID) (reference inception_utils.py:285-328), with the network on
     ``device``; ``weights`` optionally names a ported Inception-weights
-    npz. The JAX package's ``no_fid``, ``prints`` and ``use_jax`` options
-    and its mesh have no caller here and are left out."""
+    npz. Under a data mesh each rank runs Inception on its rows of every
+    sample batch (``eval/inception.py``), as the JAX package shards the
+    batch over its mesh. The JAX package's ``no_fid``, ``prints`` and
+    ``use_jax`` options have no caller here and are left out."""
     from ..utils.fs import smart_open
     from .inception import InceptionWrapper, accumulate_activations
 

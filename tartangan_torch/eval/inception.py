@@ -10,15 +10,23 @@ The moments stream on the device: float32 sums of the pool features and of
 the last batch; the mean and the unbiased covariance are then formed in
 float64 on the host. A sample function that returns tensors on the card
 (the trainer's G samples) thus never sends an image to the host.
+
+Under a data mesh (``parallel/``; the trainer's FID component) every rank
+holds each sample batch whole and runs Inception on its rows of it; the
+moment sums are then all-reduced over the data group and the softmax rows
+all-gathered in the one-process order, so that the Inception Score's
+splits see the images as a one-process run does.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.inception import init_inception, resolve_pretrained
 from ..ops import consts
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh as M
 
 VGG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 VGG_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -63,11 +71,17 @@ def stream_activations(sample_fn, net, num_images: int):
     """Run ``sample_fn()`` batches through ``net`` until ``num_images``
     activations are gathered. Returns device tensors (softmax rows (N,
     1000), sum of pool (P,), sum of pool.T @ pool (P, P), both float32)
-    and N, with no host synchronization of its own."""
+    and N, with no host synchronization of its own. Under a data mesh
+    each rank runs its rows of every batch, and the results are the
+    whole run's (``_mesh_totals``)."""
+    mesh = M.current()
     probs, n = [], 0
     sum_x = sum_xxt = None
     while n < num_images:
         images = sample_fn()
+        n += images.shape[0]
+        if mesh is not None:
+            images = mesh.shard(images)
         pool, p = net(images)
         if sum_x is None:
             sum_x = torch.zeros(pool.shape[-1], device=pool.device)
@@ -76,8 +90,23 @@ def stream_activations(sample_fn, net, num_images: int):
         sum_x += pool.sum(0)
         sum_xxt.addmm_(pool.T, pool)
         probs.append(p)
-        n += images.shape[0]
-    return torch.cat(probs), sum_x, sum_xxt, n
+    probs = torch.cat(probs)
+    if mesh is not None:
+        probs, sum_x, sum_xxt = _mesh_totals(mesh, probs, sum_x, sum_xxt,
+                                             len(images))
+    return probs, sum_x, sum_xxt, n
+
+
+def _mesh_totals(mesh, probs, sum_x, sum_xxt, rows):
+    """The sums over the data group, and the softmax rows of every rank in
+    the one-process order: each rank holds ``rows`` rows of each batch,
+    rank-major within the batch."""
+    for t in (sum_x, sum_xxt):
+        dist.all_reduce(t, group=mesh.data_group)
+    parts = [torch.empty_like(probs) for _ in range(mesh.dp)]
+    dist.all_gather(parts, probs.contiguous(), group=mesh.data_group)
+    batches = torch.stack([p.unflatten(0, (-1, rows)) for p in parts], 1)
+    return batches.flatten(0, 2), sum_x, sum_xxt
 
 
 def finish_moments(probs, sum_x, sum_xxt, n):

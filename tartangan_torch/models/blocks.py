@@ -48,7 +48,14 @@ from ..ops.resize import (
 )
 from ..utils.precision import wide
 from .iqn import IQN, iqn_loss
-from .layers import BatchNorm, Conv, Dense, NormAct, activation_fn
+from .layers import (
+    BatchNorm,
+    Conv,
+    Dense,
+    NormAct,
+    activation_fn,
+    full_weight,
+)
 
 
 def _upsample(x, ndim):
@@ -508,7 +515,7 @@ def _parity_conv(h, conv, cout, mode, fused=False):
     over the parity stack ``h``; both give a (B, 4*cout, H, W) parity stack.
     The merged-tap kernel (K3) when ``fused``, else ``conv_parity2`` under
     ``ops.parity.MERGED_TAP``, else the 3x3-packed conv."""
-    w, b = conv.weight, conv.bias
+    w, b = full_weight(conv), conv.bias
     if fused:
         return _nchw(fused_parity_conv(_nhwc(h), w, b, cout, mode))
     pack3, pack2 = _PACKS[mode]
@@ -559,7 +566,7 @@ class ParityResidualGeneratorBlock(RematBlock):
                      P.FUSED_G)
         if hasattr(self, "project_input"):
             proj = self.project_input
-            scp = P.conv2d(x, proj.weight.repeat(4, 1, 1, 1),
+            scp = P.conv2d(x, full_weight(proj).repeat(4, 1, 1, 1),
                            proj.bias.repeat(4))
         else:  # identity shortcut: all four parity planes of up2(x) are x
             scp = x.repeat(1, 4, 1, 1)
@@ -627,7 +634,7 @@ class ParityResidualDiscriminatorBlock(RematBlock):
         hp = h if self.accept_parity else P.space_to_depth(h)
         y1p = tagged(_parity_conv, hp, self.Conv_0, cout, "full")
         h2 = getattr(self, self.mid_norm)(y1p, train)
-        w2, b2 = self.Conv_1.weight, self.Conv_1.bias
+        w2, b2 = full_weight(self.Conv_1), self.Conv_1.bias
         if self.emit_parity:
             # conv2 + pool emitting the parity stack of the half resolution
             y2 = tagged(lambda: P.conv2d(h2, P.pack_down_parity_conv(w2),
@@ -638,7 +645,7 @@ class ParityResidualDiscriminatorBlock(RematBlock):
                 x_sc = P.space_to_depth(downsample_bilinear_half(x))
             if hasattr(self, "project_input"):
                 proj = self.project_input
-                x_sc = P.conv2d(x_sc, P.pack_point_conv(proj.weight),
+                x_sc = P.conv2d(x_sc, P.pack_point_conv(full_weight(proj)),
                                 proj.bias.repeat(4))
             return x_sc + y2
         y2 = tagged(lambda: P.conv2d(h2, P.pack_down_conv(w2), b2,
@@ -671,7 +678,7 @@ class ParityGeneratorOutput(nn.Module):
 
     def forward(self, xp: torch.Tensor, train: bool = True) -> torch.Tensor:
         xp = self.NormAct_0(xp, train)
-        yp = P.conv2d(xp, P.pack_point_conv(self.Conv_0.weight),
+        yp = P.conv2d(xp, P.pack_point_conv(full_weight(self.Conv_0)),
                       self.Conv_0.bias.repeat(4))
         if self.output_activation == "tanh":
             yp = torch.tanh(yp)
@@ -691,7 +698,7 @@ class ParityDiscriminatorInput(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train
         return P.conv2d(P.space_to_depth(x),
-                        P.pack_point_conv(self.Conv_0.weight),
+                        P.pack_point_conv(full_weight(self.Conv_0)),
                         self.Conv_0.bias.repeat(4))
 
 

@@ -18,6 +18,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.collectives import batch_mean
 from .layers import BatchNorm, Dense, leaky_relu
 
 
@@ -136,4 +137,4 @@ def iqn_loss(preds: torch.Tensor, target: torch.Tensor, taus: torch.Tensor,
     huber = torch.where(err.abs() <= k, 0.5 * err.square(),
                         k * (err.abs() - 0.5 * k))
     weight = (taus - (err < 0).to(wide)).abs()
-    return (weight * huber).sum(0).mean()
+    return batch_mean((weight * huber).sum(0))

@@ -10,6 +10,11 @@ compute dtype, which ``Generator`` and ``Discriminator`` set), as flax's
 weights at use, ``BatchNorm`` reduces and normalizes in float32 and casts
 back, and the activation runs on the cast value
 (``utils/precision.py``).
+
+Under a data mesh (``parallel/``) ``BatchNorm`` normalizes with the moments
+of the global batch, and under ``--tp`` a conv or dense layer whose
+weight is sharded computes its slice of the output channels and gathers
+them (``parallel/tp.py``); without a mesh both are as they were.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import collectives as C
 from ..utils.precision import apply_in_dtype, rounded
 
 
@@ -51,7 +57,10 @@ class BatchNorm(nn.Module):
     (float64 for a float64 input) and outside autograd. ``F.batch_norm``'s
     own update would store the unbiased variance, so it is not used.
     Serving and sampling run train-mode forwards that leave the statistics
-    untouched, as the JAX package discards its batch-stat update there. In eval mode it
+    untouched, as the JAX package discards its batch-stat update there.
+    Under a data mesh the train-mode moments are the global batch's
+    (``collectives.batch_moments``, ``mean(x^2) - mean^2`` as flax's),
+    so every rank normalizes and stores the same statistics. In eval mode it
     normalizes with the running statistics. Statistics and normalization
     are computed in float32 (float64 for a float64 input) and the result is
     cast back to the input's dtype before the activation.
@@ -70,7 +79,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train:
+        if train and C.data_reducing() is not None:
+            y = self._global_batch_norm(x32)
+        elif train:
             if self.update_stats:
                 with torch.no_grad():
                     dims = [d for d in range(x.dim()) if d != 1]
@@ -86,6 +97,19 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, training=False,
                              eps=self.eps)
         return y.to(x.dtype)
+
+    def _global_batch_norm(self, x32):
+        c = x32.shape[1]
+        mean, var = C.batch_moments(x32.movedim(1, -1).reshape(-1, c))
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        shape = (1, c) + (1,) * (x32.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean.view(shape)) * inv.view(shape)
+                + self.bias.view(shape))
 
 
 @contextlib.contextmanager
@@ -136,26 +160,59 @@ class PixelNorm(nn.Module):
         return x / torch.sqrt(x.square().mean(dim=1, keepdim=True) + self.eps)
 
 
+def _column_parallel(layer, op, x, dim, **kwargs):
+    """A layer whose weight holds this rank's output channels (``--tp``):
+    its slice of ``op``'s output from the whole input, gathered along
+    ``dim`` over the model group, plus the bias."""
+    y = apply_in_dtype(op, C.tp_copy(x, layer.tp), layer.weight, None,
+                       **kwargs)
+    y = C.tp_gather(y, dim, layer.tp)
+    if layer.bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + layer.bias.to(y.dtype).view(shape)
+
+
+def full_weight(layer: nn.Module) -> torch.Tensor:
+    """``layer.weight`` whole: gathered over the model group when ``--tp``
+    shards it (for code that packs it, as the parity blocks do)."""
+    if getattr(layer, "tp", None) is None:
+        return layer.weight
+    return C.tp_gather(layer.weight, 0, layer.tp)
+
+
 class _Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype (flax's ``Conv`` with ``dtype``)."""
+    tp = None  # the model group when --tp shards the weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return _column_parallel(self, F.conv2d, x, 1,
+                                    padding=self.padding)
         return apply_in_dtype(F.conv2d, x, self.weight, self.bias,
                               padding=self.padding)
 
 
 class _Conv1d(nn.Conv1d):
     """``nn.Conv1d`` in its input's dtype (the text GAN's NCL convs)."""
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return _column_parallel(self, F.conv1d, x, 1,
+                                    padding=self.padding)
         return apply_in_dtype(F.conv1d, x, self.weight, self.bias,
                               padding=self.padding)
 
 
 class _Linear(nn.Linear):
     """``nn.Linear`` in its input's dtype (flax's ``Dense`` with ``dtype``)."""
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return _column_parallel(self, F.linear, x, -1)
         return apply_in_dtype(F.linear, x, self.weight, self.bias)
 
 

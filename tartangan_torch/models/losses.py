@@ -1,11 +1,15 @@
 """GAN losses: BCE-with-logits, hinge and the R1 gradient penalty.
 
 Counterparts of ``tartangan_tpu/models/losses.py:15-35`` and ``:36-51``;
-the IQN loss is ``models/iqn.py::iqn_loss``.
+the IQN loss is ``models/iqn.py::iqn_loss``. Each mean over the batch is
+``parallel.collectives.batch_mean``: ``.mean()`` in one process, and this
+rank's share of the global batch's mean under a data mesh.
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel.collectives import batch_mean
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -22,19 +26,19 @@ def bce_with_logits(logits: torch.Tensor,
     labels = labels.to(logits.dtype)
     loss = (logits.clamp(min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
-    return loss.mean()
+    return batch_mean(loss)
 
 
 def discriminator_hinge_loss(real: torch.Tensor, fake: torch.Tensor):
     """(mean relu(1 - real), mean relu(1 + fake)), in float32 (float64 for
     float64 logits)."""
-    return (torch.relu(1.0 - _f32(real)).mean(),
-            torch.relu(1.0 + _f32(fake)).mean())
+    return (batch_mean(torch.relu(1.0 - _f32(real))),
+            batch_mean(torch.relu(1.0 + _f32(fake))))
 
 
 def generator_hinge_loss(fake: torch.Tensor) -> torch.Tensor:
     """-mean(fake), in float32 (float64 for float64 logits)."""
-    return -_f32(fake).mean()
+    return -batch_mean(_f32(fake))
 
 
 def r1_gradient_penalty(d_apply_fn, real: torch.Tensor):
@@ -51,5 +55,6 @@ def r1_gradient_penalty(d_apply_fn, real: torch.Tensor):
     logits = out[0] if isinstance(out, (tuple, list)) else out
     (grads,) = torch.autograd.grad(_f32(logits).sum(), real,
                                    create_graph=True)
-    penalty = _f32(grads).square().reshape(real.shape[0], -1).sum(1).mean()
+    penalty = batch_mean(
+        _f32(grads).square().reshape(real.shape[0], -1).sum(1))
     return penalty, out

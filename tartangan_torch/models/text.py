@@ -15,6 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import collectives as C
+from ..parallel.collectives import batch_mean
+
 
 class SkipGram(nn.Module):
     """Two (num_items, item_dims) tables, ``embedding_u`` (the items) and
@@ -32,22 +35,36 @@ class SkipGram(nn.Module):
         self.embedding_u.normal_(generator=generator)
         self.embedding_v.normal_(generator=generator)
 
+    def rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the table ``name``, whole: under ``--tp`` each
+        rank holds a slice of the D columns (``parallel/tp.py``) and the
+        looked-up rows are gathered."""
+        rows = getattr(self, name)[ids.long()]
+        tp = getattr(self, "tp", None)
+        return rows if tp is None else C.tp_gather(rows, -1, tp)
+
+    def table(self, name: str = "embedding_u") -> torch.Tensor:
+        """The table ``name`` whole (gathered under ``--tp``)."""
+        t = getattr(self, name)
+        tp = getattr(self, "tp", None)
+        return t if tp is None else C.tp_gather(t, 1, tp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Token ids (B, L) -> their embeddings (B, L, D), float32."""
-        return self.embedding_u[x.long()]
+        return self.rows("embedding_u", x)
 
     def loss(self, words: torch.Tensor, contexts: torch.Tensor,
              negatives: torch.Tensor) -> torch.Tensor:
         """Negative-sampling loss of ``words`` (B,) against their
         ``contexts`` (B, C) and the drawn ``negatives`` (B, C) ids."""
-        emb_u = self.embedding_u[words.long()]                # (B, D)
-        emb_v = self.embedding_v[contexts.long()]             # (B, C, D)
+        emb_u = self.rows("embedding_u", words)               # (B, D)
+        emb_v = self.rows("embedding_v", contexts)            # (B, C, D)
         scores = torch.einsum("bcd,bd->bc", emb_v, emb_u)
         pos_loss = F.logsigmoid(scores).sum(1)
-        emb_v_neg = self.embedding_v[negatives.long()]
+        emb_v_neg = self.rows("embedding_v", negatives)
         neg_scores = torch.einsum("bcd,bd->bc", emb_v_neg, emb_u)
         neg_loss = F.logsigmoid(-neg_scores).sum(1)
-        return -(pos_loss + neg_loss).mean()
+        return -batch_mean(pos_loss + neg_loss)
 
 
 def skipgram_lookup(embedding_u: torch.Tensor, zs: torch.Tensor,

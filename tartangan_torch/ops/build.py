@@ -7,11 +7,14 @@ once for each compute dtype (``-DTT_BFLOAT16`` for bfloat16), so the two
 halves of their template instances compile in parallel. Libraries go to ``build/torch_kernels/``
 at the repo root, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source is rebuilt at its next
-use. Nothing is built at import time.
+use. Nothing is built at import time. Builds run under a file lock in that
+directory, so processes that need a library at once (the ranks of a mesh)
+build it once.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,10 +77,18 @@ def build(names=None) -> dict[str, str]:
     compiler output (register and shared-memory use); raises on a failed
     build."""
     names = list(SOURCES) if names is None else list(names)
+    if all(library_path(n).exists() for n in names):
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_stale(names)
+
+
+def _build_stale(names) -> dict[str, str]:
     stale = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not stale:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name, out in stale.items():

@@ -51,6 +51,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as C
 from ..utils.precision import rounded, wide
 from . import build
 from .parity import (
@@ -79,10 +80,8 @@ def _act(x):
 def _moments(x):
     """Biased per-channel mean and variance over all but the last axis,
     float32 (float64 for float64), as ``mean(x^2) - mean^2`` (the
-    reference's ``_moments``)."""
-    x32 = x.to(wide(x.dtype)).reshape(-1, x.shape[-1])
-    mean = x32.mean(0)
-    return mean, x32.square().mean(0) - mean.square()
+    reference's ``_moments``); over the global batch under a data mesh."""
+    return C.batch_moments(x.to(wide(x.dtype)).reshape(-1, x.shape[-1]))
 
 
 def _bn_act(x, mean, mul, offset):
@@ -293,9 +292,10 @@ def _fused_forward(x, p, use_kernel=True):
     m1, v1 = _moments(x)
     y1p, stats = fa(x, m1, v1, p["s1"], p["o1"], p["w1"], p["b1"])
     # every position of y1 appears once among the four parity blocks: fold
-    # the parity axis into the reduction before finishing the moments
-    npix = b * 4 * h * w
-    s4 = stats.reshape(2, 4, cout).sum(1)
+    # the parity axis into the reduction before finishing the moments;
+    # under a data mesh K4's sums are all-reduced first
+    npix = b * 4 * h * w * C.data_size()
+    s4 = C.data_sum(stats.reshape(2, 4, cout).sum(1))
     m2 = s4[0] / npix
     v2 = s4[1] / npix - m2.square()
     out_p = fb(y1p, x, m2, v2, p["s2"], p["o2"], p["w2"], p["b2"],

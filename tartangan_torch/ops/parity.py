@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as C
 from ..utils.precision import apply_in_dtype, wide
 from . import consts
 
@@ -257,8 +258,7 @@ def folded_moments(xp, c):
     (B, 4*C, H, W), float32 (float64 for float64): every full-resolution
     position appears once among the parity blocks, so folding the parity
     axis into the reduction gives the full-resolution tensor's statistics.
-    ``mean(x^2) - mean^2``, as the reference computes it."""
-    x32 = xp.to(wide(xp.dtype)).permute(0, 2, 3, 1).reshape(-1, 4, c)
-    mean = x32.mean(dim=(0, 1))
-    var = x32.square().mean(dim=(0, 1)) - mean.square()
-    return mean, var
+    ``mean(x^2) - mean^2``, as the reference computes it; over the global
+    batch under a data mesh (``parallel/collectives.py``)."""
+    return C.batch_moments(
+        xp.to(wide(xp.dtype)).permute(0, 2, 3, 1).reshape(-1, c))

@@ -163,7 +163,8 @@ class CNNTrainer(Trainer):
             # independent random init towards G
             g_target = init_module_(self.build_generator(), init_gen)
             ema_update(g, g_target, args.lr_target_g)
-        g, g_target, d = (m.to(self.device) for m in (g, g_target, d))
+        g, g_target, d = (self.place(m.to(self.device))
+                          for m in (g, g_target, d))
         g_target.requires_grad_(False)
         self.g = g
         return g, g_target, d
@@ -210,8 +211,7 @@ class CNNTrainer(Trainer):
 
 
 def main(argv=None):
-    trainer = CNNTrainer.create_from_cli(argv)
-    trainer.train()
+    return CNNTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

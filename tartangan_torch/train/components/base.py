@@ -42,6 +42,13 @@ class TrainerComponent(abc.ABC):
         return (steps + k - 1) // freq > (steps - 1) // freq
 
     @property
+    def writer(self) -> bool:
+        """Whether this process writes files: rank 0 of a mesh (every rank
+        runs the hooks, which may hold collectives), or the only one."""
+        from ...parallel.mesh import is_writer
+        return is_writer()
+
+    @property
     def trainer(self):
         if not hasattr(self, "_trainer"):
             raise AttributeError(

@@ -20,7 +20,8 @@ from .base import TrainerComponent
 
 class ImageSamplerComponent(TrainerComponent):
     def on_train_begin(self, steps, logs):
-        maybe_makedirs(self.sample_root, exist_ok=True)
+        if self.writer:
+            maybe_makedirs(self.sample_root, exist_ok=True)
         self.progress_samples = self.trainer.sample_z(32)
 
     def on_train_end(self, steps, logs):
@@ -36,7 +37,8 @@ class ImageSamplerComponent(TrainerComponent):
             trainer.sample_g(z=self.progress_samples, target_g=True)[:16],
             trainer.sample_g(z=self.progress_samples)[:16],
         ], axis=0)
-        save_image(imgs, filename, nrow=8)
+        if self.writer:
+            save_image(imgs, filename, nrow=8)
 
         if not hasattr(self, "_latent_grid_samples"):
             self._latent_grid_samples = self.sample_latent_grid(5, 5)
@@ -45,7 +47,8 @@ class ImageSamplerComponent(TrainerComponent):
         grid_filename = os.path.join(
             os.path.dirname(filename), f"grid_{os.path.basename(filename)}"
         )
-        save_image(grid_imgs, grid_filename, nrow=5)
+        if self.writer:
+            save_image(grid_imgs, grid_filename, nrow=5)
 
     def sample_latent_grid(self, nrows, ncols):
         corners = self.trainer.sample_z(4).cpu().numpy()

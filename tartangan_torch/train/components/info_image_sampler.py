@@ -55,6 +55,8 @@ class InfoImageSamplerComponent(ImageSamplerComponent):
                 continue
             imgs = self.trainer.sample_g(
                 z=samples.reshape(-1, samples.shape[-1]), target_g=True)
+            if not self.writer:
+                continue
             save_image(imgs, os.path.join(
                 os.path.dirname(filename),
                 f"info_{name}_{os.path.basename(filename)}"),

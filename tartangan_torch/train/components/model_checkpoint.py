@@ -50,9 +50,14 @@ class ModelCheckpointComponent(TrainerComponent):
         self.save_checkpoint(steps)
 
     def save_checkpoint(self, steps):
+        """Every rank gathers the artifacts (``--tp`` slices); rank 0
+        writes them."""
+        artifacts = self.trainer.checkpoint_artifacts()
+        if not self.writer:
+            return
         maybe_makedirs(self.checkpoint_root)
         print(f"saving checkpoint to {self.checkpoint_root}")
-        for name, tree in self.trainer.checkpoint_artifacts().items():
+        for name, tree in artifacts.items():
             fname = ARTIFACT_FILES.get(name, f"{name}.msgpack")
             with smart_open(f"{self.checkpoint_root}/{fname}", "wb") as out:
                 out.write(msgpack.dumps(tree))

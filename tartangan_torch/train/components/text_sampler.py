@@ -16,7 +16,8 @@ from .base import TrainerComponent
 
 class TextSamplerComponent(TrainerComponent):
     def on_train_begin(self, steps, logs):
-        maybe_makedirs(self.sample_root, exist_ok=True)
+        if self.writer:
+            maybe_makedirs(self.sample_root, exist_ok=True)
         self.progress_samples = self.trainer.sample_z(32)
 
     def on_train_end(self, steps, logs):
@@ -31,6 +32,8 @@ class TextSamplerComponent(TrainerComponent):
         generated = trainer.sample_g(z=self.progress_samples)[:16]
         ids = trainer.lookup(generated).cpu().numpy()
         itos = trainer.dataset.vocab.itos
+        if not self.writer:
+            return
         with smart_open(filename, "w") as outfile:
             for row in ids:
                 doc = " ".join(itos[i] for i in row)

@@ -23,6 +23,7 @@ from ..models import factories as F
 from ..models.layers import update_batch_stats
 from ..models.losses import bce_with_logits, r1_gradient_penalty
 from ..models.pluggan import Discriminator
+from ..parallel.collectives import batch_mean
 from .cnn import CNNTrainer
 from .common import bce_labels, ema_update, normalize_batch
 
@@ -56,7 +57,7 @@ def make_info_train_step(*, cat_dims, cont_dims, info_w, grad_penalty,
         if cont_dims:
             cont = slice(cat_dims, cat_dims + cont_dims)
             diff = p_codes[..., cont].float() - z[..., cont].float()
-            loss = loss + diff.square().mean()
+            loss = loss + batch_mean(diff.square())
         return loss
 
     def train_step(state, batch_u8, z_d, z_g):
@@ -151,8 +152,7 @@ class InfoTrainer(CNNTrainer):
 
 
 def main(argv=None):
-    trainer = InfoTrainer.create_from_cli(argv)
-    trainer.train()
+    return InfoTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

@@ -112,10 +112,21 @@ class IQNTrainer(CNNTrainer):
                                  device=self.device),
         }
 
+    def shard_extra(self, draws: dict, lead: tuple) -> dict:
+        """This rank's taus: their rows are quantile-major (q * B + b), so
+        each quantile's block keeps its rows."""
+        if self.mesh is None:
+            return draws
+        q = self.state.d.output_block.IQN_0.num_quantiles
+
+        def rows(t):
+            blocks = t.unflatten(-2, (q, -1))
+            return self.shard(blocks, blocks.dim() - 2).flatten(-3, -2)
+        return {k: rows(v) for k, v in draws.items()}
+
 
 def main(argv=None):
-    trainer = IQNTrainer.create_from_cli(argv)
-    trainer.train()
+    return IQNTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..models.scene import StructuredSceneGenerator
+from ..parallel import mesh as M
 from .cnn import CNNTrainer, make_cnn_train_step
 
 
@@ -63,7 +64,7 @@ class SceneTrainer(CNNTrainer):
             z = self.sample_z(n)
         z = torch.as_tensor(z, device=self.device)
         g = self.state.g_target if target_g else self.state.g
-        with torch.no_grad():
+        with torch.no_grad(), M.replicated():
             return g(z, train=True, noise=self._noise(()))
 
     @classmethod
@@ -77,8 +78,7 @@ class SceneTrainer(CNNTrainer):
 
 
 def main(argv=None):
-    trainer = SceneTrainer.create_from_cli(argv)
-    trainer.train()
+    return SceneTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

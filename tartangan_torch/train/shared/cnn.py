@@ -33,8 +33,7 @@ class SharedCNNTrainer(CNNTrainer):
 
 
 def main(argv=None):
-    trainer = SharedCNNTrainer.create_from_cli(argv)
-    trainer.train()
+    return SharedCNNTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

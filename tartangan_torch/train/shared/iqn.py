@@ -27,8 +27,7 @@ class SharedIQNTrainer(IQNTrainer):
 
 
 def main(argv=None):
-    trainer = SharedIQNTrainer.create_from_cli(argv)
-    trainer.train()
+    return SharedIQNTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

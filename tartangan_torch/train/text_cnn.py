@@ -39,7 +39,7 @@ from ..ops.init import init_module_
 from .cnn import CNNTrainer, gan_update
 from .common import ema_update, make_adam
 from .state import TextGANTrainState
-from .trainer import metrics_component
+from .trainer import checkpoint_component, metrics_component
 
 # optax.sgd's state as flax serializes it: two empty states
 _SGD_STATE = {"0": {}, "1": {}}
@@ -115,9 +115,9 @@ class TextCNNTrainer(CNNTrainer):
 
         init_gen = torch.Generator().manual_seed(args.seed)
         g, g_target, d = self.init_models(init_gen)
-        embedding = init_module_(
+        embedding = self.place(init_module_(
             SkipGram(len(self.dataset.vocab), args.embedding_dims),
-            init_gen).to(self.device)
+            init_gen).to(self.device))
         self.state = TextGANTrainState(
             g=g, g_target=g_target, d=d,
             opt_g=make_adam(g.parameters(), args.lr_g),
@@ -163,27 +163,31 @@ class TextCNNTrainer(CNNTrainer):
         return {"offsets": offsets, "negatives": negatives}
 
     def train_batch(self, batch):
-        n = batch.shape[0]
-        draws = self.text_draws(n)
+        # the global batch's draws, of which this rank keeps its rows
+        n = self.args.batch_size
+        draws = {k: self.shard(v) for k, v in self.text_draws(n).items()}
         if self.pretraining_embedding > 0:
             self.pretraining_embedding -= 1
             return self._embed_step(self.state, batch, **draws)
-        return self._full_step(self.state, batch, z_d=self.draw_z(
-            (self.args.iters_d, n)), z_g=self.draw_z((n,)), **draws)
+        return self._full_step(
+            self.state, batch,
+            z_d=self.shard(self.draw_z((self.args.iters_d, n)), 1),
+            z_g=self.shard(self.draw_z((n,))), **draws)
 
     def lookup(self, zs) -> torch.Tensor:
         """Generated embedding sequences (B, L, D) -> vocabulary ids."""
-        return skipgram_lookup(self.state.embedding.embedding_u.detach(),
-                               torch.as_tensor(zs))
+        with torch.no_grad():
+            table = self.state.embedding.table()
+        return skipgram_lookup(table, torch.as_tensor(zs))
 
-    def checkpoint_artifacts(self):
-        artifacts = super().checkpoint_artifacts()
+    def _checkpoint_artifacts(self):
+        artifacts = super()._checkpoint_artifacts()
         artifacts["embedding"] = to_flax(self.state.embedding)["params"]
         artifacts["opt_emb"] = copy.deepcopy(_SGD_STATE)
         return artifacts
 
-    def load_checkpoint_artifacts(self, artifacts):
-        super().load_checkpoint_artifacts(artifacts)
+    def _load_checkpoint_artifacts(self, artifacts):
+        super()._load_checkpoint_artifacts(artifacts)
         self.state.embedding.load_state_dict(
             from_flax({"params": artifacts["embedding"]}))
         if artifacts["opt_emb"] != _SGD_STATE:
@@ -192,9 +196,8 @@ class TextCNNTrainer(CNNTrainer):
 
     @classmethod
     def get_component_classes(cls, args):
-        from .components.model_checkpoint import ModelCheckpointComponent
         from .components.text_sampler import TextSamplerComponent
-        classes = [TextSamplerComponent, ModelCheckpointComponent]
+        classes = [TextSamplerComponent, checkpoint_component(args)]
         if args.metrics_collector:
             classes.append(metrics_component(args.metrics_collector))
         return classes
@@ -208,8 +211,7 @@ class TextCNNTrainer(CNNTrainer):
 
 
 def main(argv=None):
-    trainer = TextCNNTrainer.create_from_cli(argv)
-    trainer.train()
+    return TextCNNTrainer.run_cli(argv)
 
 
 if __name__ == "__main__":

@@ -15,21 +15,38 @@ Latents (and the device archive's draws) come from the trainer's own
 ``--steps-per-call K`` runs K steps a call (``train/multi.py``), replayed
 from captured CUDA graphs on the card.
 
-Flags whose feature is not ported yet raise ``NotImplementedError`` when
-set away from their default (``_UNPORTED``); none is ignored.
+``--num-devices N`` and ``--tp T`` run the trainer on a mesh of N ranks,
+one process each (``parallel/``; ``run_cli`` starts them). ``--batch-size``
+is the global batch, as in the JAX package: every rank draws the global
+batch's indices, crops, latents and other draws from the same seeded
+streams and keeps its rows, so a rank's numbers are the one-process run's.
+The losses and BatchNorm's moments are taken over the global batch, the
+gradients are summed over the data group before each optimizer step (so
+Adam and the EMA run alike on every rank), the logged metrics are summed
+over it too, and ``--tp`` shards the weights' output channels over the
+model group (``parallel/tp.py``). Only rank 0 writes samples, checkpoints,
+logs and traces; checkpoints stay in the one-process layout. Under the
+mesh a K-step call runs eagerly (gloo's collectives are not captured in
+a CUDA graph).
+
+``--checkpoint-format orbax`` raises ``NotImplementedError``
+(``_UNPORTED``): the port imports neither orbax nor tensorstore.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib
 import os
 import random
 import signal
 import string
+import sys
 from collections import defaultdict
 from datetime import datetime
 
 import torch
+import torch.distributed as dist
 
 from ..convert import adam_from_flax, adam_to_flax, from_flax, to_flax
 from ..data.device import (
@@ -41,18 +58,18 @@ from ..data.device import (
 from ..data.image_bytes import ImageBytesDataset
 from ..data.prefetch import EpochBatcher, prefetch_to_device
 from ..ops.remat import POLICIES
+from ..parallel import collectives as C
+from ..parallel import mesh as M
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
 from ..utils.precision import full_float32, resolve_dtype
+from ..utils.scalars import last_scalar
 from .components.container import ComponentContainer
 from .multi import GraphedChunk, chunk_train_step, stack_batches
 from .progress import ProgressLine
 
 # flag -> (is it set away from its default?, what is missing)
 _UNPORTED = {
-    "num_devices": (lambda a: a.num_devices not in (None, 1),
-                    "data parallelism over several devices"),
-    "tp": (lambda a: a.tp > 1, "tensor parallelism"),
     "checkpoint_format": (lambda a: getattr(a, "checkpoint_format",
                                             "msgpack") != "msgpack",
                           "orbax checkpoints"),
@@ -61,12 +78,47 @@ _UNPORTED = {
 
 def check_unported(args) -> None:
     """Raise ``NotImplementedError`` for any flag of a feature that is
-    not ported yet."""
+    not ported (orbax checkpoints)."""
     for flag, (is_set, what) in _UNPORTED.items():
         if is_set(args):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)}: {what} "
                 "is not ported yet")
+
+
+def _train_cli(trainer_path: str, argv):
+    """One rank's (or the only process's) run of a trainer's CLI:
+    ``trainer_path`` is 'module:Class'. Returns the last logged value of
+    each metric, as floats."""
+    module, name = trainer_path.split(":")
+    cls = getattr(importlib.import_module(module), name)
+    trainer = cls.create_from_cli(argv)
+    trainer.train()
+    return {k: last_scalar(v[-1]) for k, v in trainer.logs.items() if v}
+
+
+def _writes_only(component_class) -> bool:
+    """A component that only writes (a metrics collector, the profiler):
+    rank 0 of a mesh runs it, the other ranks leave it out. The FID
+    component's Inception runs on every rank."""
+    from .components.metrics.base import FileBasedMetricsComponent
+    from .components.metrics.fid import FIDComponent
+    from .components.profiler import ProfilerComponent
+    return component_class is not FIDComponent and issubclass(
+        component_class, (FileBasedMetricsComponent, ProfilerComponent))
+
+
+def checkpoint_component(args):
+    """The checkpoint component: under ``--metrics-collector kubeflow`` the
+    one that also tracks the model in Kubeflow's metadata store (it adds
+    ``--kubeflow-metadata``), else the plain one."""
+    if args.metrics_collector == "kubeflow":
+        from .components.kubeflow_model_checkpoint import (
+            KubeflowModelCheckpointComponent,
+        )
+        return KubeflowModelCheckpointComponent
+    from .components.model_checkpoint import ModelCheckpointComponent
+    return ModelCheckpointComponent
 
 
 def metrics_component(name: str):
@@ -99,6 +151,9 @@ class Trainer:
             raise RuntimeError("--device cuda but no CUDA device is "
                                "available; pass --device cpu to train on "
                                "the CPU")
+        self.mesh = self._join_mesh(args)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         # the compute dtype; parameters, BatchNorm statistics, Adam's state
         # and the EMA target stay float32 (flax's dtype / param_dtype)
         self.dtype = resolve_dtype(args.dtype)
@@ -106,8 +161,14 @@ class Trainer:
 
         self.run_id = args.run_id if args.run_id is not None \
             else self._generate_run_id()
-        maybe_makedirs(self.output_root, exist_ok=True)
-        self._save_cli_arguments()
+        if self.mesh is not None:
+            # the run id is random per process: rank 0's is the run's
+            chosen = [self.run_id]
+            dist.broadcast_object_list(chosen, src=0)
+            self.run_id = chosen[0]
+        if M.is_writer():
+            maybe_makedirs(self.output_root, exist_ok=True)
+            self._save_cli_arguments()
 
         self.components = ComponentContainer()
         self.components.trainer = self
@@ -118,6 +179,77 @@ class Trainer:
         self.steps_per_call = max(getattr(args, "steps_per_call", 1) or 1, 1)
         self._chunk_call = None
         self.z_gen = torch.Generator(device=self.device).manual_seed(args.seed)
+
+    # ------------------------------------------------------------------ mesh
+    @staticmethod
+    def _join_mesh(args):
+        """The mesh of this rank, or None for one process. A process group
+        exists when ``run_cli`` (or ``torchrun``) started the ranks; more
+        than one device without one is an error."""
+        mesh = M.current()
+        if mesh is not None:
+            if (args.num_devices not in (None, mesh.world)
+                    or args.tp != mesh.tp):
+                raise ValueError(
+                    f"--num-devices {args.num_devices} --tp {args.tp}, but "
+                    f"this process is a rank of a {mesh.world}-rank mesh "
+                    f"with tp {mesh.tp}")
+        else:
+            world = M.resolve_world(args.num_devices, args.tp,
+                                    torch.device(args.device).type)
+            if world == 1:
+                return None
+            raise ValueError(
+                f"--num-devices {world}: start the ranks with the trainer's "
+                "CLI (python -m tartangan_torch.train.<trainer>) or torchrun")
+        if args.batch_size % mesh.dp:
+            raise ValueError(f"--batch-size {args.batch_size} does not "
+                             f"divide over {mesh.dp} data shards")
+        return mesh
+
+    def place(self, module):
+        """``module`` placed on the mesh: its weights' output channels
+        sharded over the model group under ``--tp``, else as it is."""
+        if self.mesh is not None and self.mesh.tp > 1:
+            from ..parallel.tp import shard_module_
+            shard_module_(module, self.mesh.model)
+        return module
+
+    def _setup_mesh_state(self):
+        """After ``build_models``: each optimizer sums its gradients over
+        the data group before it steps, and ``--tp`` logs the placement
+        summary."""
+        if self.mesh is None:
+            return
+        group = self.mesh.data_group
+        for opt in vars(self.state).values():
+            if isinstance(opt, torch.optim.Optimizer):
+                params = [p for g in opt.param_groups for p in g["params"]]
+                opt.register_step_pre_hook(
+                    lambda _opt, _args, _kwargs, params=params:
+                        C.all_reduce_grads(params, group))
+        if self.mesh.tp > 1:
+            from ..parallel.tp import placement_summary
+            summary = placement_summary(self.checkpoint_artifacts(),
+                                        self.mesh.tp)
+            if M.is_writer():
+                print(summary)
+
+    def shard(self, t, dim: int = 0):
+        """This rank's rows of a global-batch tensor (or numpy array) along
+        ``dim``; itself without a mesh."""
+        if self.mesh is None:
+            return t
+        if isinstance(t, torch.Tensor):
+            return self.mesh.shard(t, dim)
+        rows = self.mesh.rows(t.shape[dim])
+        return t[(slice(None),) * dim + (rows,)]
+
+    def shard_extra(self, draws: dict, lead: tuple) -> dict:
+        """This rank's part of ``extra_draws``'s draws (made for the global
+        batch); the CNN step takes none, the scene's patch noise has no
+        batch dimension."""
+        return draws
 
     # ----------------------------------------------------------------- hooks
     def build_models(self):
@@ -155,6 +287,7 @@ class Trainer:
     # ------------------------------------------------------------ train loop
     def train(self):
         self.build_models()
+        self._setup_mesh_state()
         print(f"Preparing dataset from {self.args.data_path}")
         self.dataset = self.prepare_dataset()
         if self.args.device_data:
@@ -176,6 +309,9 @@ class Trainer:
         progress = ProgressLine(newlines=self.args.log_progress_newlines)
         k = self.steps_per_call
         self._warn_chunk_cadence(k)
+        if k > 1 and self.mesh is not None:
+            print(f"--steps-per-call {k} on a {self.mesh.world}-rank mesh: "
+                  "each call runs its steps eagerly (no CUDA graph)")
         # with K steps a call, an epoch runs the largest multiple of K
         # batches that fits (a graph has one shape)
         num_batches = (len(batcher) // k) * k
@@ -201,13 +337,15 @@ class Trainer:
                 elif k > 1:
                     # K host batches stacked: one copy a call
                     batch_iter = prefetch_to_device(
-                        stack_batches(batcher.epoch(), k), self.device)
+                        (self.shard(b, 1) for b in
+                         stack_batches(batcher.epoch(), k)), self.device)
                 else:
-                    batch_iter = prefetch_to_device(batcher.epoch(),
-                                                    self.device)
+                    batch_iter = prefetch_to_device(
+                        (self.shard(b) for b in batcher.epoch()),
+                        self.device)
                 for batch in batch_iter:
                     self.components.invoke("batch_begin", self.steps, logs)
-                    training_metrics = self.train_batch(batch)
+                    training_metrics = C.sum_metrics(self.train_batch(batch))
                     for name, value in training_metrics.items():
                         logs[name].append(value)
                     self.components.invoke("batch_end", self.steps, logs)
@@ -247,16 +385,19 @@ class Trainer:
         if self.steps_per_call > 1:
             return self._train_chunk(batch)
         if batch is None:
-            idx, ys, xs = self._draw_device_data(1)
-            batch = gather_crop(self._archive, idx[0], ys[0], xs[0],
-                                self._crop)
+            idx, ys, xs = (self.shard(t[0])
+                           for t in self._draw_device_data(1))
+            batch = gather_crop(self._archive, idx, ys, xs, self._crop)
         lazy_off = (self._r1_interval > 1
                     and self.steps % self._r1_interval != 0)
         fn = self._train_step_alt if lazy_off else self._train_step
-        n = batch.shape[0]
+        # the global batch's draws, of which this rank keeps its rows
+        n = self.args.batch_size
         z_d = torch.stack([self.sample_z(n) for _ in range(self.args.iters_d)])
         z_g = self.sample_z(n)
-        return fn(self.state, batch, z_d, z_g, **self.extra_draws((), n))
+        extra = self.shard_extra(self.extra_draws((), n), ())
+        return fn(self.state, batch, self.shard(z_d, 1), self.shard(z_g),
+                  **extra)
 
     def _draw_device_data(self, k):
         n, h, w, _ = self._archive.shape
@@ -280,10 +421,12 @@ class Trainer:
         k, b = self.steps_per_call, self.args.batch_size
         draws = {}
         if device_data:
-            draws.update(zip(("idx", "ys", "xs"), self._draw_device_data(k)))
-        draws["z_d"] = self.draw_z((k, self.args.iters_d, b))
-        draws["z_g"] = self.draw_z((k, b))
-        draws.update(self.extra_draws((k,), b))
+            draws.update(zip(("idx", "ys", "xs"),
+                             (self.shard(t, 1)
+                              for t in self._draw_device_data(k))))
+        draws["z_d"] = self.shard(self.draw_z((k, self.args.iters_d, b)), 2)
+        draws["z_g"] = self.shard(self.draw_z((k, b)), 1)
+        draws.update(self.shard_extra(self.extra_draws((k,), b), (k,)))
         return draws
 
     def draw_z(self, lead: tuple) -> torch.Tensor:
@@ -312,7 +455,7 @@ class Trainer:
         multi = chunk_train_step(
             step, self.steps_per_call, "broadcast" if device_data else "scan",
             alt_step_fn=alt, alt_interval=self._r1_interval)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             return multi
         return GraphedChunk(multi)
 
@@ -340,12 +483,14 @@ class Trainer:
         device from random or given z, with train-mode BatchNorm that
         leaves the running statistics as they are (the JAX sampler discards
         its batch-stat update). No host synchronization: the FID component
-        feeds these to Inception on the device."""
+        feeds these to Inception on the device. Under a mesh every rank
+        generates the whole batch (``mesh.replicated``), so the samples are
+        the one-process run's."""
         if z is None:
             z = self.sample_z(n)
         z = torch.as_tensor(z, device=self.device)
         g = self.state.g_target if target_g else self.state.g
-        with torch.no_grad():
+        with torch.no_grad(), M.replicated():
             return g(z, train=True)
 
     def sample_g(self, n=None, target_g=False, z=None):
@@ -362,8 +507,24 @@ class Trainer:
         for key, value in state.items():
             setattr(self, key, value)
 
+    def _unsharded(self):
+        """The models whole for a while under ``--tp`` (``tp.unsharded``);
+        a no-op otherwise."""
+        from ..parallel.tp import unsharded
+        s = self.state
+        modules = [m for m in vars(s).values() if isinstance(m, torch.nn.Module)]
+        opts = [o for o in vars(s).values()
+                if isinstance(o, torch.optim.Optimizer)]
+        return unsharded(modules, opts)
+
     def checkpoint_artifacts(self):
-        """name -> flax tree of numpy arrays, in the JAX trainer's layout."""
+        """name -> flax tree of numpy arrays, in the JAX trainer's layout
+        (gathered from the model group's slices under ``--tp``; every rank
+        calls it)."""
+        with self._unsharded():
+            return self._checkpoint_artifacts()
+
+    def _checkpoint_artifacts(self):
         s = self.state
         return {
             "g": to_flax(s.g),
@@ -374,6 +535,12 @@ class Trainer:
         }
 
     def load_checkpoint_artifacts(self, artifacts):
+        """Load a one-process checkpoint; under ``--tp`` each rank keeps
+        its slices."""
+        with self._unsharded():
+            self._load_checkpoint_artifacts(artifacts)
+
+    def _load_checkpoint_artifacts(self, artifacts):
         s = self.state
         s.g.load_state_dict(from_flax(artifacts["g"]))
         s.d.load_state_dict(from_flax(artifacts["d"]))
@@ -405,8 +572,7 @@ class Trainer:
     @classmethod
     def get_component_classes(cls, args):
         from .components.image_sampler import ImageSamplerComponent
-        from .components.model_checkpoint import ModelCheckpointComponent
-        classes = [ImageSamplerComponent, ModelCheckpointComponent]
+        classes = [ImageSamplerComponent, checkpoint_component(args)]
 
         if args.profile_dir or args.timing:
             from .components.profiler import ProfilerComponent
@@ -419,6 +585,29 @@ class Trainer:
         if args.metrics_collector:
             classes.append(metrics_component(args.metrics_collector))
         return classes
+
+    @classmethod
+    def run_cli(cls, argv=None):
+        """The trainer's CLI: train in this process, or, for
+        ``--num-devices`` N > 1 (or ``--tp`` > 1 on the CPU), start N
+        ranks (``parallel.mesh.launch``: NCCL with a card each, gloo on
+        the CPU; under ``torchrun`` this process is one rank) and train on
+        each. Returns rank 0's last logged value of each metric."""
+        argv = list(sys.argv[1:] if argv is None else argv)
+        parser = argparse.ArgumentParser(add_help=False,
+                                         fromfile_prefix_chars="@")
+        cls.add_args_to_parser(parser)
+        args = parser.parse_known_args(argv)[0]
+        module = cls.__module__
+        if module == "__main__":  # python -m tartangan_torch.train.<x>
+            module = sys.modules["__main__"].__spec__.name
+        path = f"{module}:{cls.__qualname__}"
+        device_type = torch.device(args.device).type
+        world = M.resolve_world(args.num_devices, args.tp, device_type)
+        if world == 1 or M.current() is not None:
+            return _train_cli(path, argv)
+        return M.launch(_train_cli, world, (path, argv), tp=args.tp,
+                        device_type=device_type)
 
     @classmethod
     def create_from_cli(cls, argv=None):
@@ -441,7 +630,8 @@ class Trainer:
         args._argv = list(argv) if argv is not None else None
 
         print(f'Using torch device "{args.device}"')
-        components = [cc(args) for cc in component_classes]
+        components = [cc(args) for cc in component_classes
+                      if M.is_writer() or not _writes_only(cc)]
         return cls(args, components)
 
     @classmethod
@@ -531,9 +721,11 @@ class Trainer:
                        help="Compute dtype (params always f32); auto = f32 "
                             "(the JAX package's rule off a TPU)")
         p.add_argument("--num-devices", type=type_or_none(int), default=None,
-                       help="Devices in the data mesh (only 1 is ported)")
+                       help="Ranks in the mesh, one process each (default: "
+                            "every visible card on CUDA, --tp on the CPU)")
         p.add_argument("--tp", type=int, default=1,
-                       help="Tensor-parallel degree (only 1 is ported)")
+                       help="Tensor-parallel degree: shard the weights' "
+                            "output channels over a (data, model) mesh")
         p.add_argument("--seed", type=int, default=0)
         p.add_argument("--ema-start", default="copy",
                        choices=["copy", "reference"],
