@@ -28,7 +28,11 @@ printing a result:
 1. device: needs CUDA (there is no CPU path); prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every CUDA kernel of the port from the sources in the
-   checkout (``tartangan_torch/ops/build.py``), all in parallel.
+   checkout (``tartangan_torch/ops/build.py``), all in parallel; meanwhile
+   the phases that launch no hand-written kernel run in a process of
+   their own (``--phases-without-kernels``: 9, 10 and phase 11's '128'
+   part, in that order; their host clocks share the CPU with nvcc), and
+   phase 3 starts once both are done.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the serving and training paths' shapes and more, with the tolerances
    stated below (K2 fed from K1's o and lse, as the train step runs it,
@@ -250,14 +254,28 @@ printing a result:
    --validate --validate-n 256 (the three FIDs finite and ordered, the
    seconds); then the native crop batcher against numpy, byte for byte,
    and its host time for a B 64 batch of 512x512 (and 384x384) crops.
+16. orbax checkpoints (``--checkpoint-format orbax``, read and written by
+   the port's own zstd decoder, OCDBT and zarr code), run right after
+   phase 6 on its trainer. The committed
+   JAX-written fixture (``tests/fixtures/orbax_jax``, config '8', made by
+   ``ocp.StandardCheckpointer``: real compressed zstd blocks) restored bit
+   for bit against its msgpack twin, and the decoder's rate on its frames;
+   then phase 6's '512thin' float32 B 64 state saved through the
+   checkpoint component in both formats, both read back bit for bit
+   against the state's artifacts, their sizes and the save and restore
+   times (host clock); then a trainer resumed from each
+   (``--resume-training-step``) takes one step of the same batch and
+   latents, K1 and K2 launched (counted from 0 around each run), and the
+   two steps' losses are held within TOL_STEP_LOSS.
 
 The last three lines of standard output are a ``{"kernels": [...]}`` JSON
 line (K1-K5; K1/K2's launches in phase 14's find_image run under
 ``launches_find``; K1/K2 at the G shape with the D shape's times under
 ``shape_d``, K1's serving shapes under ``shape_serve``, config '1024''s
 shapes in both dtypes under ``shape_1024``, the scene generator's under
-``shape_scene`` and K1/K2's launches per rank in phase 15's steps under
-``launches_mesh`` (``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
+``shape_scene``, K1/K2's launches per rank in phase 15's steps under
+``launches_mesh`` and in phase 16's resumed steps under ``launches_resume``
+(``plain_b1_ms`` and ``library_b1_ms`` at B 1, where the
 plain version and SDPA fit); K3-K5's times
 summed over the launches of one G forward; each record's ``dtypes`` and,
 under ``bf16``, its bfloat16 numbers and the bfloat16 parity path's
@@ -367,8 +385,13 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 K1_PER_STEP, K2_PER_STEP = 5, 5
 
 
+# "[beside the build] " in the process of phases 9, 10 and 11's '128'
+# part: each of its lines says that its host clock shared the CPU with nvcc
+LOG_TAG = ""
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(LOG_TAG + msg, flush=True)
 
 
 def nvidia_smi_line():
@@ -440,16 +463,19 @@ def device_ms(fn, events, iters=20):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.1)
-    by_name = {}
+    by_name, on_device = {}, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and \
-                any(p in e.name for p in patterns):
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if e.device_type == DeviceType.CUDA:
+            on_device += 1
+            if any(p in e.name for p in patterns):
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
     counts = [len(t) for t in by_name.values()]
     if len(by_name) != per_call or min(counts) < iters // 2:
         raise RuntimeError(f"the profiler showed {counts} events of "
                            f"{sorted(by_name)} for {per_call} kernel(s) x "
-                           f"{iters} calls matching {patterns[0]}")
+                           f"{iters} calls matching {patterns[0]} "
+                           f"({on_device} device events in all)")
     if min(counts) < iters:
         log(f"device_ms: the profiler recorded {counts} of {iters} launches "
             f"of {[n[:60] for n in by_name]}")
@@ -1105,18 +1131,26 @@ def set_attention_kernel(trainer, use_kernel):
                 m.use_kernel = use_kernel
 
 
-def phase_train(dev):
-    """Train full-width '512thin' for 3 steps through the trainer's entry
-    points; B 64, or B 32 if B 64 does not fit."""
+def train_archive():
+    """Phase 6's archive, 192 synthetic 512x512 tartans (seed 0), which
+    phases 7-16 also read; written once."""
     from tartangan_torch.data.synthetic import make_archive
     TRAIN_DIR.mkdir(parents=True, exist_ok=True)
     archive = TRAIN_DIR / "tartans512.npy"
-    t0 = time.perf_counter()
-    images = make_archive(192, 512, seed=0)
-    np.save(archive, images)
-    log(f"train: wrote a {images.shape} uint8 synthetic tartan archive "
-        f"({images.nbytes / 1e6:.0f} MB) in {time.perf_counter() - t0:.1f} s")
-    del images
+    if not archive.exists():
+        t0 = time.perf_counter()
+        images = make_archive(192, 512, seed=0)
+        np.save(archive, images)
+        log(f"train: wrote a {images.shape} uint8 synthetic tartan archive "
+            f"({images.nbytes / 1e6:.0f} MB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return archive
+
+
+def phase_train(dev):
+    """Train full-width '512thin' for 3 steps through the trainer's entry
+    points; B 64, or B 32 if B 64 does not fit."""
+    archive = train_archive()
     try:
         return run_training(archive, 64)
     except torch.cuda.OutOfMemoryError:
@@ -3602,19 +3636,26 @@ def time_dispatch(label, ways, batch, reps):
     return out
 
 
-def phase_dispatch(archive, smi):
-    """Phase 11: the trainer's data and dispatch paths on the card
-    (``--device-data``, ``--steps-per-call K`` replayed from CUDA graphs,
-    ``--profile-dir``/``--timing``, ``--activation selu``). Returns the
-    timing records."""
-    from tartangan_torch.train.multi import GraphedChunk
-    t_phase = last = time.perf_counter()
+def lap_logger():
+    """``lap(part)`` logs the host-clock seconds since the previous lap."""
+    last = [time.perf_counter()]
 
     def lap(part):
-        nonlocal last
         now = time.perf_counter()
-        log(f"dispatch: {part} took {now - last:.1f} s (host clock)")
-        last = now
+        log(f"dispatch: {part} took {now - last[0]:.1f} s (host clock)")
+        last[0] = now
+    return lap
+
+
+def phase_dispatch_128(archive, smi):
+    """Phase 11's '128' part (no hand-written kernel: it runs while nvcc
+    builds them): ``--device-data`` and ``--steps-per-call K`` replayed
+    from CUDA graphs in both dtypes, lazy R1's cadence, no sync or H2D in
+    a call, three ways timed, ``--profile-dir``/``--timing``, ``--activation
+    selu``. Returns the timing records."""
+    from tartangan_torch.train.multi import GraphedChunk
+    t_phase = time.perf_counter()
+    lap = lap_logger()
     DISPATCH_DIR.mkdir(parents=True, exist_ok=True)
     big = DISPATCH_DIR / "tartans512x1024.npy"
     np.save(big, np.resize(np.load(archive), (DISPATCH_IMAGES, 512, 512, 3)))
@@ -3703,6 +3744,52 @@ def phase_dispatch(archive, smi):
         torch.cuda.empty_cache()
         lap(f"'128' {dtype} timed three ways")
 
+    # --profile-dir with --timing: a trace of calls 2 and 4 (replays)
+    trace_dir = DISPATCH_DIR / "trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    t = dispatch_trainer(big, "profile", "--dtype", "bf16", "--device-data",
+                         "--steps-per-call", "2", "--profile-dir",
+                         str(trace_dir), "--profile-start", "2",
+                         "--profile-steps", "2", "--timing",
+                         "--timing-freq", "2")
+    train_dispatch("'128' B128 bf16 K2 --profile-dir --timing", t, 4, 2)
+    trace = json.loads((trace_dir / "trace_2.json").read_text())
+    cats = {}
+    for e in trace["traceEvents"]:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    rates = [float(r) for r in t.logs["images_per_sec"]]
+    log(f"dispatch: --profile-dir trace {trace_dir / 'trace_2.json'}: "
+        f"{len(trace['traceEvents'])} events by category {cats}; "
+        f"images_per_sec {rates}")
+    if not cats.get("kernel") or len(rates) != 3 or min(rates) <= 0:
+        raise AssertionError(f"trace categories {cats}, rates {rates}")
+    del t, trace
+    lap("--profile-dir --timing")
+
+    # --activation selu: '128' trains one step (192 images, one batch)
+    t = dispatch_trainer(archive, "selu", "--dtype", "bf16", "--activation",
+                         "selu")
+    t.train()
+    losses = {k: float(t.logs[k][0]) for k in ("g_loss", "d_loss", "gp")}
+    log(f"dispatch: '128' B128 bf16 --activation selu, one step: {losses}")
+    assert t.steps == 1 and all(np.isfinite(list(losses.values())))
+    assert not isinstance(t._chunk_call, GraphedChunk)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("--activation selu")
+    log(f"dispatch: phase 11's '128' part took "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return results
+
+
+def phase_dispatch(archive, results):
+    """Phase 11's '512thin' parity part: ``--device-data
+    --steps-per-call 2`` replayed from CUDA graphs with K1-K5 inside, in
+    both dtypes, and two ways timed; adds its records to ``results``."""
+    t_phase = time.perf_counter()
+    lap = lap_logger()
+
     # '512thin' parity path at B 64, --device-data --steps-per-call 2
     per_step = {"attention_fwd": K1_PER_STEP, "attention_bwd": K2_PER_STEP,
                 "parity_conv": K3_PER_STEP, "gblock_a": K4_PER_STEP,
@@ -3758,43 +3845,8 @@ def phase_dispatch(archive, smi):
     gc.collect()
     torch.cuda.empty_cache()
     lap("'512thin' parity bf16 timed two ways")
-
-    # --profile-dir with --timing: a trace of calls 2 and 4 (replays)
-    trace_dir = DISPATCH_DIR / "trace"
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    t = dispatch_trainer(big, "profile", "--dtype", "bf16", "--device-data",
-                         "--steps-per-call", "2", "--profile-dir",
-                         str(trace_dir), "--profile-start", "2",
-                         "--profile-steps", "2", "--timing",
-                         "--timing-freq", "2")
-    train_dispatch("'128' B128 bf16 K2 --profile-dir --timing", t, 4, 2)
-    trace = json.loads((trace_dir / "trace_2.json").read_text())
-    cats = {}
-    for e in trace["traceEvents"]:
-        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
-    rates = [float(r) for r in t.logs["images_per_sec"]]
-    log(f"dispatch: --profile-dir trace {trace_dir / 'trace_2.json'}: "
-        f"{len(trace['traceEvents'])} events by category {cats}; "
-        f"images_per_sec {rates}")
-    if not cats.get("kernel") or len(rates) != 3 or min(rates) <= 0:
-        raise AssertionError(f"trace categories {cats}, rates {rates}")
-    del t, trace
-    lap("--profile-dir --timing")
-
-    # --activation selu: '128' trains one step (192 images, one batch)
-    t = dispatch_trainer(archive, "selu", "--dtype", "bf16", "--activation",
-                         "selu")
-    t.train()
-    losses = {k: float(t.logs[k][0]) for k in ("g_loss", "d_loss", "gp")}
-    log(f"dispatch: '128' B128 bf16 --activation selu, one step: {losses}")
-    assert t.steps == 1 and all(np.isfinite(list(losses.values())))
-    assert not isinstance(t._chunk_call, GraphedChunk)
-    del t
-    gc.collect()
-    torch.cuda.empty_cache()
-    lap("--activation selu")
-    log(f"dispatch: phase 11 took {time.perf_counter() - t_phase:.1f} s "
-        f"(host clock)")
+    log(f"dispatch: phase 11's parity part took "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
     return results
 
 
@@ -5129,10 +5181,218 @@ def phase_mesh(data128):
                                       ("nccl1", nccl))}
             for i, name in enumerate(names)}
 
+ORBAX_DIR = ROOT / "build" / "chip_smoke_orbax"
+ORBAX_FIXTURE = FIXTURES / "orbax_jax"
+ORBAX_ARTIFACTS = ("g", "g_target", "d", "opt_g", "opt_d")
+
+
+def same_tree(ours, theirs, label):
+    """Bit for bit: the same keys, and each leaf (numpy array or torch
+    tensor) the same dtype, shape and bytes."""
+    if isinstance(theirs, dict):
+        if not isinstance(ours, dict) or sorted(ours) != sorted(theirs):
+            raise AssertionError(f"{label}: keys differ")
+        for k in theirs:
+            same_tree(ours[k], theirs[k], f"{label}/{k}")
+        return
+    a = ours.detach().cpu() if isinstance(ours, torch.Tensor) else ours
+    b = theirs.detach().cpu() if isinstance(theirs, torch.Tensor) else theirs
+    if type(a) is not type(b) or a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{label}: {type(a).__name__} {a.dtype} "
+                             f"{tuple(a.shape)} vs {type(b).__name__} "
+                             f"{b.dtype} {tuple(b.shape)}")
+    if isinstance(a, torch.Tensor):
+        a, b = a.view(torch.uint8).numpy(), b.view(torch.uint8).numpy()
+    if a.tobytes() != b.tobytes():
+        raise AssertionError(f"{label}: the bytes differ")
+
+
+def dir_bytes(path):
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def orbax_fixture():
+    """The JAX-written fixture against its msgpack twin; the decoder's rate
+    on the fixture's compressed frames (every chunk and node, host clock)."""
+    from tartangan_torch.utils import msgpack, ocdbt, orbax, zstd
+    t0 = time.perf_counter()
+    for name in ORBAX_ARTIFACTS:
+        twin = msgpack.loads((ORBAX_FIXTURE / f"{name}.msgpack").read_bytes())
+        same_tree(orbax.restore(ORBAX_FIXTURE / f"{name}.orbax"), twin,
+                  f"fixture {name}")
+    t_restore = time.perf_counter() - t0
+    frames = []
+    for name in ORBAX_ARTIFACTS:
+        root = ORBAX_FIXTURE / f"{name}.orbax"
+        frames += list(ocdbt.read_all(str(root)).values())
+        frames += [f.read_bytes()[14:-4] for f in root.rglob("*")
+                   if f.is_file() and f.read_bytes()[:2] == b"\x0c\xdb"]
+    frames = [f for f in frames if f[:4] == b"\x28\xb5\x2f\xfd"]
+    out = sum(len(zstd.decompress(f)) for f in frames)
+    reps, t0 = 0, time.perf_counter()
+    while reps < 3 or time.perf_counter() - t0 < 0.2:
+        for f in frames:
+            zstd.decompress(f)
+        reps += 1
+    rate = out * reps / (time.perf_counter() - t0) / 1e6
+    log(f"orbax: the JAX-written fixture ({dir_bytes(ORBAX_FIXTURE)} bytes, "
+        f"config '8') restored bit for bit against its msgpack twin in "
+        f"{t_restore * 1e3:.1f} ms; the decoder over its {len(frames)} zstd "
+        f"frames ({out} bytes out): {rate:.1f} MB/s (host clock, "
+        f"{os.cpu_count()} cores)")
+    return rate
+
+
+def resumed_step(args, archive, epochs, steps, fmt):
+    """A trainer like ``args``'s, resumed from phase 16's checkpoint
+    (``fmt``), runs its one step; returns its logged metrics and the K1/K2
+    launches of the run."""
+    from tartangan_torch.ops.attention import attention, attention_bwd
+    from tartangan_torch.train.cnn import CNNTrainer
+    trainer = CNNTrainer.create_from_cli([
+        str(archive), "--config", args.config, "--batch-size",
+        str(args.batch_size), "--epochs", str(epochs), "--dtype", args.dtype,
+        "--device", args.device,
+        "--run-id", "resume", "--output", str(ORBAX_DIR / "out"),
+        "--resume-training-step", str(steps), "--checkpoint-format", fmt,
+        "--gen-freq", "100000", "--checkpoint-freq", "100000",
+        "--quiet-logs"])
+    per_step = []
+    train_batch = trainer.train_batch
+
+    def counted(batch):
+        before = (attention.launches, attention_bwd.launches)
+        metrics = train_batch(batch)
+        per_step.append((attention.launches - before[0],
+                         attention_bwd.launches - before[1]))
+        return metrics
+    trainer.train_batch = counted
+    attention.launches = attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": attention.launches,
+                "attention_bwd": attention_bwd.launches}
+    if trainer.steps != steps + 1:
+        raise AssertionError(f"resume {fmt}: {trainer.steps - steps} steps")
+    if per_step != [(K1_PER_STEP, K2_PER_STEP)]:
+        raise AssertionError(f"resume {fmt}: K1/K2 launches in the step "
+                             f"{per_step}")
+    metrics = {k: float(v[-1]) for k, v in trainer.logs.items()}
+    log(f"orbax: resumed from the {fmt} checkpoint at step {steps}, one "
+        f"step in {wall:.1f} s (host clock, the resume and the final "
+        f"checkpoint and samples included): {metrics}; K1/K2 launches in "
+        f"the step {per_step[0]}, in the run (the final samples' G "
+        f"forward too) {launches}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
+def phase_orbax(trainer, smi):
+    """Phase 16: orbax checkpoints at '512thin' B 64 float32. Returns K1/K2's
+    launches in each resumed run."""
+    from tartangan_torch.train.components.model_checkpoint import (
+        ModelCheckpointComponent,
+    )
+    from tartangan_torch.utils import msgpack, orbax
+    t16 = time.perf_counter()
+    shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    ORBAX_DIR.mkdir(parents=True)
+    rate = orbax_fixture()
+
+    # one epoch of one step: phase 6's first B tartans
+    archive = ORBAX_DIR / "tartans512x64.npy"
+    np.save(archive, trainer.dataset.images[:trainer.args.batch_size])
+    component = next(c for c in trainer.components.components
+                     if isinstance(c, ModelCheckpointComponent))
+    trainer.args.output, trainer.run_id = str(ORBAX_DIR / "out"), "resume"
+    steps, epochs = trainer.steps, trainer.epoch
+    ckpt = Path(component.checkpoint_root)
+    times = {}
+    for fmt in ("orbax", "msgpack"):
+        trainer.args.checkpoint_format = fmt
+        t0 = time.perf_counter()
+        component.save_checkpoint(steps)
+        times[fmt] = {"save_s": time.perf_counter() - t0}
+    artifacts = trainer.checkpoint_artifacts()
+    sizes = {}
+    for name in ORBAX_ARTIFACTS:
+        t0 = time.perf_counter()
+        from_orbax = orbax.restore(ckpt / f"{name}.orbax")
+        t1 = time.perf_counter()
+        from_msgpack = msgpack.loads((ckpt / f"{name}.msgpack").read_bytes())
+        t2 = time.perf_counter()
+        same_tree(from_orbax, artifacts[name], f"orbax {name}")
+        same_tree(from_msgpack, artifacts[name], f"msgpack {name}")
+        for fmt, dt in (("orbax", t1 - t0), ("msgpack", t2 - t1)):
+            times[fmt]["restore_s"] = times[fmt].get("restore_s", 0) + dt
+        sizes[name] = {"orbax": dir_bytes(ckpt / f"{name}.orbax"),
+                       "msgpack": dir_bytes(ckpt / f"{name}.msgpack")}
+    total = {fmt: sum(v[fmt] for v in sizes.values())
+             for fmt in ("orbax", "msgpack")}
+    log(f"orbax: '{trainer.args.config}' B {trainer.args.batch_size} "
+        f"{trainer.args.dtype} state at step {steps} saved through "
+        f"the checkpoint component in both formats and restored bit for bit "
+        f"against its artifacts; bytes {sizes}, total {total}; host-clock "
+        f"seconds {times} ({smi})")
+
+    metrics, launches = {}, {}
+    for fmt in ("orbax", "msgpack"):
+        metrics[fmt], launches[fmt] = resumed_step(trainer.args, archive,
+                                                   epochs, steps, fmt)
+    for k in ("g_loss", "d_loss", "gp"):
+        np.testing.assert_allclose(metrics["orbax"][k], metrics["msgpack"][k],
+                                   **TOL_STEP_LOSS)
+    log(f"orbax: the step resumed from orbax holds against the one resumed "
+        f"from msgpack within {TOL_STEP_LOSS}; phase 16 took "
+        f"{time.perf_counter() - t16:.1f} s; decoder {rate:.1f} MB/s")
+    return {name: {fmt: launches[fmt][name] for fmt in launches}
+            for name in ("attention_fwd", "attention_bwd")}
+
+
+WITHOUT_KERNELS = "--phases-without-kernels"
+
+
+def phases_without_kernels():
+    """Phases 9, 10 and phase 11's '128' part, which launch no
+    hand-written kernel: ``main`` runs them in a process of their own (this
+    function) while nvcc builds the kernels. Their host clocks share the
+    CPU with the build, so their numbers do not compare with runs that
+    took them alone."""
+    global LOG_TAG
+    LOG_TAG = "[beside the build] "
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"time: {phase} done {time.perf_counter() - t_start:.1f} s "
+            "after its process's start (during the build)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    archive = train_archive()
+    phase_128(archive)
+    done("phase 9")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_eval(torch.device("cuda"), archive, smi)
+    done("phase 10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dispatch_128(archive, smi)
+    done("phase 11's '128' part")
+
+
 def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
-                   or (ab[0] == "--gblock-ab" and len(ab) >= 2)):
+                   or (ab[0] == "--gblock-ab" and len(ab) >= 2)
+                   or ab == [WITHOUT_KERNELS]):
         print("usage: chip_smoke.py [--k1-ab OTHER_attention_fwd.cu ... | "
               "--gblock-ab OTHER_DIR ...]", file=sys.stderr)
         return 2
@@ -5147,6 +5407,13 @@ def main():
               file=sys.stderr)
         return 1
     faulthandler.enable()  # a crash in native code prints the Python stack
+    if ab == [WITHOUT_KERNELS]:
+        try:
+            phases_without_kernels()
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     t_start = time.perf_counter()
 
     def done(phase):
@@ -5162,8 +5429,26 @@ def main():
             f"{torch.__version__}, CUDA {torch.version.cuda}")
 
         t0 = time.perf_counter()
-        logs = build.build()
-        log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
+        if ab:
+            logs = build.build()
+        else:
+            # nvcc builds the kernels while the phases that launch none of
+            # them run, in a process of their own: a profiler's state stays
+            # in its process, and after these phases' long profiles the
+            # kernel timing in the same process saw events dropped
+            child = subprocess.Popen([sys.executable, str(ROOT /
+                                                          "chip_smoke.py"),
+                                      WITHOUT_KERNELS])
+            try:
+                logs = build.build()
+            finally:
+                rc = child.wait()
+            if rc != 0:
+                raise RuntimeError(f"phases 9, 10 and 11's '128' part "
+                                   f"failed (exit {rc})")
+        log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}"
+            + ("" if ab else ", phases 9, 10 and 11's '128' part in a "
+               "process of their own meanwhile"))
         for name, text in logs.items():
             for kernel, used, spill in ptxas_usage(text):
                 log(f"  ptxas {name} {kernel}: {used}; {spill}")
@@ -5201,8 +5486,13 @@ def main():
             f"{launches} (the kernels line counts the train path)")
         batch, z_d, z_g, _ = hold_step(trainer, dev)
         time_train(trainer, batch, z_d, z_g)
-        del trainer, batch
+        del batch
         done("phase 6")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches_resume = phase_orbax(trainer, smi)
+        del trainer
+        done("phase 16")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5228,16 +5518,8 @@ def main():
         done("phases 7-8")
         gc.collect()
         torch.cuda.empty_cache()
-        phase_128(archive)
-        done("phase 9")
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_eval(dev, archive, smi)
-        done("phase 10")
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase_dispatch(archive, smi)
-        done("phase 11")
+        phase_dispatch(archive, {"card": smi})
+        done("phase 11's parity part")
         gc.collect()
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
@@ -5275,6 +5557,8 @@ def main():
                 rec["launches_find"] = launches_find[name]
             if name in launches_mesh:
                 rec["launches_mesh"] = launches_mesh[name]
+            if name in launches_resume:
+                rec["launches_resume"] = launches_resume[name]
     except Exception:  # report the failing phase, then exit non-zero
         traceback.print_exc()
         return 1

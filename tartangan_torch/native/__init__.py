@@ -1,13 +1,15 @@
-"""The host's C++ batch gather and crop (``crop.cpp``), loaded with ctypes.
+"""The host's C++ libraries, loaded with ctypes: the batch gather and crop
+(``crop.cpp``) and the zstd decoder with CRC32C (``zstd.cpp``, used by
+``utils/zstd.py`` for orbax checkpoints).
 
-Counterpart of ``tartangan_tpu/native/``. The library is built at first
-use with ``g++ -O3 -shared -fPIC -fopenmp`` into ``build/torch_native/``
-at the repo root, named by a hash of the source and the flags, under a
-file lock (ranks of a mesh, or test workers, may ask at once); nothing is
-built at import time. Unlike the JAX package's loader, a failed build or
-load raises: there is no quiet fallback. ``crop_batch_plain`` and
-``gather_batch_plain`` are the numpy versions the tests hold the library
-against.
+The crop is the counterpart of ``tartangan_tpu/native/``. Each library is
+built at first use with ``g++ -O3 -shared -fPIC`` (``-fopenmp`` for the
+crop) into ``build/torch_native/`` at the repo root, named by a hash of
+the source and the flags, under a file lock (ranks of a mesh, or test
+workers, may ask at once); nothing is built at import time. Unlike the JAX
+package's loader, a failed build or load raises: there is no quiet
+fallback. ``crop_batch_plain`` and ``gather_batch_plain`` are the numpy
+versions the tests hold the crop against.
 """
 from __future__ import annotations
 
@@ -22,21 +24,29 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "crop.cpp"
+ZSTD_SRC = Path(__file__).resolve().parent / "zstd.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp")
+ZSTD_FLAGS = ("-O3", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB = None
+_ZSTD_LIB = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libtartangan_native-{digest[:16]}.so"
+def library_path(src: Path = None, flags=FLAGS,
+                 stem: str = "libtartangan_native") -> Path:
+    src = SRC if src is None else src
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"{stem}-{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is there; raises on a failed build."""
-    out = library_path()
+def build(src: Path = None, flags=FLAGS, stem: str = "libtartangan_native",
+          what: str = "native crop") -> Path:
+    """Compile a library (the crop's unless told otherwise) unless it is
+    there; raises on a failed build."""
+    src = SRC if src is None else src
+    out = library_path(src, flags, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -44,10 +54,10 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)],
+            proc = subprocess.run(["g++", *flags, str(src), "-o", str(tmp)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"native crop build failed (g++ exit "
+                raise RuntimeError(f"{what} build failed (g++ exit "
                                    f"{proc.returncode}):\n{proc.stderr}")
             os.replace(tmp, out)
     return out
@@ -67,6 +77,28 @@ def load() -> ctypes.CDLL:
             lib.gather_batch_u8.restype = None
             _LIB = lib
         return _LIB
+
+
+def load_zstd() -> ctypes.CDLL:
+    """The loaded zstd library (``zstd.cpp``), built if needed."""
+    global _ZSTD_LIB
+    with _LOCK:
+        if _ZSTD_LIB is None:
+            lib = ctypes.CDLL(str(build(ZSTD_SRC, ZSTD_FLAGS,
+                                        "libtartangan_zstd", "native zstd")))
+            i64, ptr = ctypes.c_int64, ctypes.c_void_p
+            lib.tt_zstd_decompress.argtypes = [ptr, i64,
+                                               ctypes.POINTER(i64),
+                                               ctypes.c_char_p, i64]
+            lib.tt_zstd_decompress.restype = ptr
+            lib.tt_zstd_free.argtypes = [ptr]
+            lib.tt_zstd_free.restype = None
+            lib.tt_crc32c.argtypes = [ptr, i64, ctypes.c_uint32]
+            lib.tt_crc32c.restype = ctypes.c_uint32
+            lib.tt_xxh64.argtypes = [ptr, i64, ctypes.c_uint64]
+            lib.tt_xxh64.restype = ctypes.c_uint64
+            _ZSTD_LIB = lib
+        return _ZSTD_LIB
 
 
 def _check(images):

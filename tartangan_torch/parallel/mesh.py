@@ -21,22 +21,32 @@ gloo for several ranks on one card (``share_device``: only the tests and
 directory), or joins ranks that ``torchrun`` started (``RANK`` and
 ``WORLD_SIZE`` in the environment). At world size 1 the trainer makes no
 mesh and no process group, and runs the one-process path.
+
+Every collective waits at most ``COLLECTIVE_TIMEOUT`` seconds (not the
+backend's default of 10 to 30 minutes), so a stuck rank fails the run in
+minutes: the ranks waiting on it raise, and a rank's failure ends
+``launch``. ``launch(..., timeout=T)`` bounds a run more tightly: T
+seconds for every collective, and for the wait for the spawned ranks,
+after which they are killed and ``TimeoutError`` is raised.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import os
 import pickle
 import shutil
 import sys
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+COLLECTIVE_TIMEOUT = 300  # seconds, unless make_mesh or launch is given one
 
 _CURRENT = None
 _REPLICATED = [0]
@@ -136,12 +146,14 @@ def resolve_world(num_devices, tp: int, device_type: str,
 
 def make_mesh(num_devices: int | None = None, tp: int = 1, *,
               device_type: str = "cpu", share_device: bool = False,
-              init_method: str | None = None, rank: int | None = None
-              ) -> Mesh:
+              init_method: str | None = None, rank: int | None = None,
+              timeout: float | None = None) -> Mesh:
     """The mesh of this process: joins (or starts) the default process
     group and makes the data and model groups. Every rank calls it, with
     the same arguments. Without ``init_method`` the group must exist
-    already (``launch``), or comes from ``torchrun``'s environment."""
+    already (``launch``), or comes from ``torchrun``'s environment.
+    ``timeout`` (seconds, default ``COLLECTIVE_TIMEOUT``) is the group's
+    timeout for each collective."""
     global _CURRENT
     if not dist.is_initialized():
         world = resolve_world(num_devices, tp, device_type, share_device)
@@ -151,8 +163,9 @@ def make_mesh(num_devices: int | None = None, tp: int = 1, *,
             world = int(os.environ["WORLD_SIZE"])
         backend = "nccl" if device_type == "cuda" and not share_device \
             else "gloo"
-        dist.init_process_group(backend, init_method=init_method,
-                                rank=rank, world_size=world)
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout or COLLECTIVE_TIMEOUT))
     world, rank = dist.get_world_size(), dist.get_rank()
     if num_devices is not None and int(num_devices) != world:
         raise ValueError(f"--num-devices {num_devices} but the process "
@@ -199,14 +212,14 @@ def teardown() -> None:
 
 # ------------------------------------------------------------------- launch
 def _rank_entry(rank, fn, args, world, tp, device_type, share_device,
-                init_file, result_path):
+                init_file, result_path, timeout, threads):
     if rank != 0:
         sys.stdout = open(os.devnull, "w")
     if device_type == "cpu":
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the launching process's threads
+        torch.set_num_threads(threads)
     make_mesh(world, tp, device_type=device_type, share_device=share_device,
-              init_method=f"file://{init_file}", rank=rank)
+              init_method=f"file://{init_file}", rank=rank, timeout=timeout)
     try:
         result = fn(*args)
         if rank == 0 and result_path is not None:
@@ -217,18 +230,21 @@ def _rank_entry(rank, fn, args, world, tp, device_type, share_device,
 
 
 def launch(fn, world: int, args: tuple = (), *, tp: int = 1,
-           device_type: str = "cpu", share_device: bool = False):
+           device_type: str = "cpu", share_device: bool = False,
+           timeout: float | None = None):
     """Run ``fn(*args)`` on every rank of a ``world``-rank mesh and return
     rank 0's result. Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set and no
     group yet) this process is one rank: it joins the group, runs ``fn``
     and returns its own result. Otherwise it spawns ``world`` processes
     (``fn`` and ``args`` must pickle), which meet through a file in a
     temporary directory; every rank but 0 prints nothing. A rank's
-    failure raises here."""
+    failure raises here, and so does a run that outlasts ``timeout``
+    seconds (default: no bound on the run; ``COLLECTIVE_TIMEOUT`` on each
+    collective): its ranks are killed."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ \
             and not dist.is_initialized():
         make_mesh(int(os.environ["WORLD_SIZE"]), tp, device_type=device_type,
-                  share_device=share_device)
+                  share_device=share_device, timeout=timeout)
         try:
             return fn(*args)
         finally:
@@ -236,11 +252,24 @@ def launch(fn, world: int, args: tuple = (), *, tp: int = 1,
     tmp = tempfile.mkdtemp(prefix="tt_mesh_")
     try:
         result_path = os.path.join(tmp, "result.pkl")
-        torch.multiprocessing.spawn(
+        ctx = torch.multiprocessing.spawn(
             _rank_entry, args=(fn, args, world, tp, device_type,
                                share_device, os.path.join(tmp, "rdzv"),
-                               result_path),
-            nprocs=world, join=True)
+                               result_path, timeout,
+                               max(1, torch.get_num_threads() // world)),
+            nprocs=world, join=False)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while not ctx.join(None if deadline is None else
+                               max(0.0, deadline - time.monotonic())):
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise TimeoutError(f"the {world} ranks did not finish "
+                                       f"within {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
         if not os.path.exists(result_path):
             return None
         with open(result_path, "rb") as f:

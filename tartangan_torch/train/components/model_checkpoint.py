@@ -10,15 +10,22 @@ artifacts, as ``{name}.msgpack``: the text GAN's ``embedding`` and
 ``tartangan_tpu.serve`` read the port's checkpoints and the port resumes
 from the JAX trainer's. Same CLI: ``--checkpoint-freq``,
 ``--resume-training-step``, ``--resume-training-latest``,
-``--checkpoint-format`` (only ``msgpack`` is ported).
+``--checkpoint-format``.
+
+``--checkpoint-format orbax`` writes each artifact as the directory
+``{name}.orbax`` in orbax's ``StandardCheckpointer`` layout
+(``utils/orbax.py``: an OCDBT store of zarr arrays, written and read
+without orbax or tensorstore), which the JAX package's orbax path reads,
+and reads the JAX package's. As there, orbax paths are local only: an
+``s3://`` output raises ``ValueError``.
 """
 from __future__ import annotations
 
 import json
 
-from ...utils import msgpack
+from ...utils import msgpack, orbax
 from ...utils.cli import type_or_none
-from ...utils.fs import maybe_makedirs, smart_ls, smart_open
+from ...utils.fs import is_s3_path, maybe_makedirs, smart_ls, smart_open
 from .base import TrainerComponent
 
 ARTIFACT_FILES = {
@@ -35,6 +42,9 @@ class ModelCheckpointComponent(TrainerComponent):
 
     def on_train_begin(self, steps, logs):
         self._loaded_from = None
+        if self._format == "orbax" and is_s3_path(self.checkpoint_root):
+            raise ValueError("--checkpoint-format orbax writes local "
+                             f"directories only, not {self.checkpoint_root}")
         if self.trainer.args.resume_training_step:
             self.trainer.steps = self.trainer.args.resume_training_step
             self.load_checkpoint()
@@ -49,6 +59,13 @@ class ModelCheckpointComponent(TrainerComponent):
     def on_train_end(self, steps, logs):
         self.save_checkpoint(steps)
 
+    @property
+    def _format(self):
+        return getattr(self.trainer.args, "checkpoint_format", "msgpack")
+
+    def _orbax_path(self, name):
+        return f"{self.checkpoint_root}/{name}.orbax"
+
     def save_checkpoint(self, steps):
         """Every rank gathers the artifacts (``--tp`` slices); rank 0
         writes them."""
@@ -58,6 +75,9 @@ class ModelCheckpointComponent(TrainerComponent):
         maybe_makedirs(self.checkpoint_root)
         print(f"saving checkpoint to {self.checkpoint_root}")
         for name, tree in artifacts.items():
+            if self._format == "orbax":
+                orbax.save(self._orbax_path(name), tree)
+                continue
             fname = ARTIFACT_FILES.get(name, f"{name}.msgpack")
             with smart_open(f"{self.checkpoint_root}/{fname}", "wb") as out:
                 out.write(msgpack.dumps(tree))
@@ -69,6 +89,9 @@ class ModelCheckpointComponent(TrainerComponent):
         self._loaded_from = self.trainer.steps
         loaded = {}
         for name in self.trainer.checkpoint_artifacts():
+            if self._format == "orbax":
+                loaded[name] = orbax.restore(self._orbax_path(name))
+                continue
             fname = ARTIFACT_FILES.get(name, f"{name}.msgpack")
             filename = f"{self.checkpoint_root}/{fname}"
             with smart_open(filename, "rb") as infile:
@@ -116,5 +139,6 @@ class ModelCheckpointComponent(TrainerComponent):
                                  "given run-id")
         parser.add_argument("--checkpoint-format", default="msgpack",
                             choices=["msgpack", "orbax"],
-                            help="msgpack: one flax pytree per artifact; "
-                                 "orbax is not ported yet")
+                            help="msgpack: one flax pytree per artifact "
+                                 "(S3-capable); orbax: StandardCheckpointer "
+                                 "directories (local paths only)")

@@ -28,9 +28,6 @@ model group (``parallel/tp.py``). Only rank 0 writes samples, checkpoints,
 logs and traces; checkpoints stay in the one-process layout. Under the
 mesh a K-step call runs eagerly (gloo's collectives are not captured in
 a CUDA graph).
-
-``--checkpoint-format orbax`` raises ``NotImplementedError``
-(``_UNPORTED``): the port imports neither orbax nor tensorstore.
 """
 from __future__ import annotations
 
@@ -67,24 +64,6 @@ from ..utils.scalars import last_scalar
 from .components.container import ComponentContainer
 from .multi import GraphedChunk, chunk_train_step, stack_batches
 from .progress import ProgressLine
-
-# flag -> (is it set away from its default?, what is missing)
-_UNPORTED = {
-    "checkpoint_format": (lambda a: getattr(a, "checkpoint_format",
-                                            "msgpack") != "msgpack",
-                          "orbax checkpoints"),
-}
-
-
-def check_unported(args) -> None:
-    """Raise ``NotImplementedError`` for any flag of a feature that is
-    not ported (orbax checkpoints)."""
-    for flag, (is_set, what) in _UNPORTED.items():
-        if is_set(args):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)}: {what} "
-                "is not ported yet")
-
 
 def _train_cli(trainer_path: str, argv):
     """One rank's (or the only process's) run of a trainer's CLI:
@@ -140,7 +119,6 @@ class Trainer:
 
     def __init__(self, args, components):
         self.args = args
-        check_unported(args)
         if (getattr(args, "data_path", None)
                 and not is_s3_path(args.data_path)
                 and not os.path.exists(args.data_path)):

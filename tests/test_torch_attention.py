@@ -8,6 +8,7 @@ operands and outputs at slightly different points. Gradients compare after
 dividing by their max-abs, as tests/test_attention.py does (a sum over Lq
 or Lk terms grows with the length).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ float32 in both, flax's ``dtype`` / ``param_dtype`` split).
 - ``python -m tartangan_torch.train.cnn ... --dtype bf16 --device cpu``
   trains, samples, checkpoints in float32 and resumes.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 

@@ -15,6 +15,7 @@ calibrate.py``).
 - ``_bn_levels`` gives each BatchNorm path the level the JAX package's
   gives it.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from pathlib import Path
 
 import numpy as np

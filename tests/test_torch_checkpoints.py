@@ -4,6 +4,7 @@ into the JAX trainer's templates, and ``tartangan_tpu.serve``), and the
 port resumes from what the JAX trainer writes. A port-trained run also
 serves through the port with its BatchNorm buffers untouched.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import threading
 import urllib.request

@@ -3,6 +3,7 @@ first call, the parity packers and the parity downsamplers make no tensor
 from numpy, so on the card they neither copy from the host nor synchronize
 the stream; and what they multiply by is bit for bit what it was when each
 call made it anew with ``torch.as_tensor``."""
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ with the same Pillow calls, and the device gather indexes the same rows and
 windows as the JAX sampler when fed its indices and offsets. The folder of
 images is written by the test itself, PNGs of mixed sizes and aspects.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import pickle
 import sys
 

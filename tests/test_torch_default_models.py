@@ -6,6 +6,7 @@ layers, blocks and losses, 1e-4 for whole models (summation order differs
 between the frameworks and the difference grows through the tower, as in
 ``test_torch_discriminator.py``).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ float32 1e-5 for single ops, layers and optimizer updates, 1e-4 for blocks
 and the whole discriminator (summation order differs between the
 frameworks and the difference grows through the tower).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

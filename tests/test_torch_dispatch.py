@@ -13,6 +13,7 @@ the other sign in another summation order).
 A K-step call fed the same draws as K single steps computes the same ops
 in the same order on the CPU, so those compare bit for bit.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -11,6 +11,7 @@ within 1e-6, the float32 Newton-Schulz FID the JAX one within 1e-4
 relative and scipy within 1e-3, and the float64 host math (the fallback
 FID, IS) the JAX functions within 1e-12.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import flax

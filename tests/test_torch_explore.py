@@ -8,6 +8,7 @@ d}.msgpack`` from seeded flax models (no JAX training run: its compile
 costs too much here). Both apps get the same latents by patching
 ``sample_z``: the JAX app draws from an unseeded generator.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 import pickle
 

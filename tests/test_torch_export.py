@@ -2,6 +2,7 @@
 byte, and its numpy interpreter against the JAX interpreter and the port's
 eval-mode generator.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ stand-in's, 1e-5, 1e-5 and 1e-4, as the JAX test's. The logged FID is only check
 samples the covariance has rank 15, and the distance to 2048-d moments
 is not a well-conditioned number to compare.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 from pathlib import Path
 
 import numpy as np
@@ -52,7 +53,8 @@ def runs(tmp_path_factory):
     one = W.paths_worker(data, str(tmp / "w1"), paths, feats, w,
                          str(FIXTURE))
     two = launch(W.paths_worker, 2, (data, str(tmp / "w2"), paths, feats,
-                                     w, str(FIXTURE)))
+                                     w, str(FIXTURE)),
+                 timeout=W.SPAWN_TIMEOUT)
     return one, two
 
 

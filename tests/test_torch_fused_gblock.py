@@ -13,6 +13,7 @@ are held to the plain versions on the card (``chip_smoke.py``,
 whole gradient (conv1's bias before a train-mode BatchNorm has a gradient
 of 0 up to rounding); the statistics 1e-5.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ Tolerances: float32 1e-5 for single ops and layers, 1e-4 for blocks and
 the whole generator (summation order differs between the frameworks and
 the difference grows through the tower).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -1,16 +1,20 @@
 """The port stands alone: no module of ``tartangan_torch`` nor
-``chip_smoke.py`` imports jax, flax or ``tartangan_tpu``.
+``chip_smoke.py`` imports jax, flax, optax or ``tartangan_tpu``, nor the
+orbax checkpoint stack (orbax, tensorstore, zstandard): the port reads and
+writes orbax checkpoints itself (``utils/orbax.py``).
 
 A static scan with ``ast``: the interpreter that runs the tests may already
 hold jax in ``sys.modules``, so an import-time check would prove nothing.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tartangan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tartangan_tpu", "orbax",
+             "tensorstore", "zstandard")
 FILES = sorted((ROOT / "tartangan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -9,6 +9,7 @@ and hands them to the port. Tolerances (float32) as
 2·lr per Adam step; statistics 1e-5 + lr; the EMA target 1e-5. The
 discriminator on the same weights: 1e-5.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

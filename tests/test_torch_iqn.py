@@ -16,6 +16,7 @@ and gp 1e-4 relative; Adam's moments 1e-4 of the gradient's max-abs;
 parameters 2·lr per Adam step; statistics 1e-5 + lr; the EMA target
 1e-5).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

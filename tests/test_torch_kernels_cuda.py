@@ -11,6 +11,7 @@ logits and another summation order), bfloat16 2e-2 (bf16 output rounding).
 The backward's gradients compare after dividing by their max-abs (a sum
 over Lq or Lk terms grows with the length), at the same tolerances.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import pytest
 import torch
 

@@ -11,6 +11,7 @@
   and one page that is not an image, with its state and error files saved
   and resumed. Nothing leaves the machine.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import sys
 import threading

@@ -3,6 +3,7 @@
 (forward hooks on the port's Inception) against flax's
 ``capture_intermediates`` on the same weights.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 
 import jax

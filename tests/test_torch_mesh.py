@@ -28,6 +28,7 @@ within 1e-10, with the optimizers set up for the mesh by the trainer. One
 CNN step is held directly against the JAX step on its 8-device mesh,
 from the same weights (``convert.py``) and the JAX step's own latents.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,7 +144,8 @@ def runs(tmp_path_factory):
            "steps": [W.cnn_step(data, str(tmp / "w1" / "steps"), *a)
                      for a in steps]}
     two = launch(W.mesh_worker, 2, (data, str(docs), str(tmp / "w2"),
-                                    FAMILIES, steps))
+                                    FAMILIES, steps),
+                 timeout=W.SPAWN_TIMEOUT)
     return one, two, (jax_new, jax_metrics)
 
 
@@ -229,3 +231,14 @@ def test_world_size_rules(tmp_path):
     with pytest.raises(ValueError, match="start the ranks"):
         CNNTrainer.create_from_cli(W.trainer_argv(
             str(data), str(tmp_path), "x", ["--config", "8"], world=2))
+
+
+def test_a_stuck_rank_fails_within_the_timeout():
+    """``launch(..., timeout=T)``: with rank 1 hung, rank 0's collective
+    times out (the process group's timeout) and the launch raises within
+    seconds of T, the ranks killed, instead of waiting out the hang."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(Exception):
+        launch(W.stuck_worker, 2, (600,), timeout=5)
+    assert time.monotonic() - t0 < 60

@@ -10,6 +10,7 @@ byte, what the JAX package's encoder writes for the same scalars at the
 same wall times; its Katib ini and Kubeflow JSON equal the files the JAX
 components write from the same logs.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import configparser
 import json
 import os

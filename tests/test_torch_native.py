@@ -1,6 +1,7 @@
 """The port's native batcher (``tartangan_torch/native``): the C++ gather
 and crop against numpy and against the JAX package's library, byte for
 byte, and the port's archive dataset batching through it."""
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import numpy as np
 import pytest
 

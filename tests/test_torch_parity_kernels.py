@@ -10,6 +10,7 @@ to the plain version on the card (``chip_smoke.py``,
 with 1e-5 absolute, forward values and gradients (one conv, summed in
 another order).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ packers are sums of at most four weights, 1e-6; layout ops are exact; the
 convolutions 1e-5 relative with 1e-5 absolute (another summation order);
 the moments 1e-5 (``mean(x^2) - mean^2`` in float32 on both sides).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ the whole gradient (a conv bias before a train-mode BatchNorm has a gradient
 of 0 up to rounding, so a leaf's own max-abs is no scale); R1 double
 gradients 1e-3 of it (a second order through BatchNorm's statistics).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -9,6 +9,7 @@ Config: blocks (80, 80, 16, 8) from a 2x2 base (32 px), so G has a plain
 first block, a fused block (80 > 64), and two parity blocks; D two parity
 blocks, chained, and two plain ones. Tolerances as in test_torch_train.py.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import json
 

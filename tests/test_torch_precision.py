@@ -6,6 +6,7 @@ eval CLIs turns TF32 off for cuDNN and cuBLAS (``tartangan_torch/utils/precision
 are process-wide settings that exist on a CPU build too, so the test runs
 here with ``--device cpu``.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import pytest
 import torch
 

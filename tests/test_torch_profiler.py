@@ -4,6 +4,7 @@ start rule against the JAX package's.
 The JAX component's ``jax.profiler`` calls are replaced by recorders here,
 so only the rule of when a trace starts and stops is compared.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 
 import numpy as np

@@ -12,6 +12,7 @@ loss sums 512 squares). A float64 train
 step with R1 through rematted blocks: losses, gp, D's and G's gradients
 and every running statistic equal to the bit to the step without remat.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -16,6 +16,7 @@ BatchNorm over it divides by a small batch deviation, magnifying the
 float32 rounding of the convs: measured up to 4.4e-5 on these draws); the
 step as ``tests/test_torch_train.py`` states it.
 """
+import torch_threads  # this process's share of the cores
 import json
 
 import jax
@@ -258,6 +259,7 @@ def test_structured_scene_generator_matches_jax(rng, monkeypatch, fed_noise):
         _close(a, b)
 
 
+@torch_threads.read_at_eight_threads
 def test_scene_step_matches_jax(rng, fed_noise):
     """One scene step with --patch-noise: the JAX CNN step threading a
     "scene" key into both G applies, the port's taking ``noise_d`` and

@@ -5,6 +5,7 @@ directory written by the JAX package.
 Served images are compared as decoded uint8 pixels to within 1 (float32
 differences of ~1e-5 can flip a rounding).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 import json
 import threading

@@ -22,6 +22,7 @@ JAX package's bfloat16 one, in norm (as ``tests/test_torch_bf16.py`` holds
 its step: a sum of many bfloat16-rounded products through the second
 derivative, in which a few products round the other way).
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 
 import jax

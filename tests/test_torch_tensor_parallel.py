@@ -20,6 +20,7 @@ over the model group (``tartangan_torch/parallel/tp.py``).
   bit, and a tp-2 mesh resumes the one-process run's checkpoint and writes
   it back unchanged.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import io
 from contextlib import redirect_stdout
 
@@ -58,7 +59,7 @@ def dp_tp_runs(data):
     tmp, path = data
     one = W.run_families(path, None, str(tmp / "w1"), ["cnn", "iqn"])
     four = launch(W.tp_worker, 4, (path, str(tmp / "w4"), ["cnn", "iqn"]),
-                  tp=2)
+                  tp=2, timeout=W.SPAWN_TIMEOUT)
     return one, four
 
 

@@ -14,6 +14,7 @@ states them (losses and gp 1e-4 relative; Adam's moments 1e-4 of the
 gradient's max-abs; parameters 2 lr; statistics 1e-5 + lr; the EMA target
 1e-5), the SkipGram's loss 1e-5 relative and its tables after SGD 1e-6.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 
 import jax

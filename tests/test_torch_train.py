@@ -19,6 +19,7 @@ last update comes from the G step's forward on the new D parameters, which
 may differ by 2·lr where a gradient's sign flipped, and the running
 statistics take 0.1 of the activations' shift.
 """
+import torch_threads  # this process's share of the cores
 import dataclasses
 import json
 
@@ -133,6 +134,7 @@ def _torch_state(js):
 
 @pytest.mark.parametrize("r1,iters_d", [("every_step", 1), ("no_r1", 1),
                                         ("no_r1", 2)])
+@torch_threads.read_at_eight_threads
 def test_train_step_matches_jax(rng, monkeypatch, r1, iters_d):
     """One step with R1, the lazy-R1 alternate without it
     (``r1_interval=2``'s ``no_r1``), and two D updates per G update."""
@@ -295,13 +297,34 @@ def test_trainer_losses_finite_and_stats_move(tiny_archive, tmp_path):
     ["--num-devices", "2"], ["--tp", "2"], ["--remat", "--num-devices", "2"],
     ["--checkpoint-format", "orbax"]])
 def test_unported_flags_raise(tiny_archive, tmp_path, flag):
-    """``--checkpoint-format orbax`` is the one flag left unported: it
-    raises. The mesh's flags (``--num-devices 2``, ``--tp 2``, and
-    ``--remat`` on two ranks) train one step of the global batch of 24
-    through the CLI's launcher, on two gloo ranks, with finite losses."""
+    """Flags that were once unported and are ported now. ``--checkpoint-
+    format orbax`` trains one step at config '8', saves the five artifacts
+    as orbax directories and resumes from them: the resumed trainer's
+    artifacts equal the saved ones bit for bit. The mesh's flags
+    (``--num-devices 2``, ``--tp 2``, and ``--remat`` on two ranks) train
+    one step of the global batch of 24 through the CLI's launcher, on two
+    gloo ranks, with finite losses."""
     if flag[0] == "--checkpoint-format":
-        with pytest.raises(NotImplementedError):
-            CNNTrainer.create_from_cli(_argv(tiny_archive, tmp_path, *flag))
+        argv = _argv(tiny_archive, tmp_path, "--config", "8",
+                     "--batch-size", "24", *flag)
+        trainer = CNNTrainer.create_from_cli(argv)
+        trainer.train()
+        ckpt = tmp_path / "testrun" / "checkpoints" / "1"
+        assert trainer.steps == 1
+        assert sorted(p.name for p in ckpt.iterdir()) == [
+            "d.orbax", "g.orbax", "g_target.orbax", "opt_d.orbax",
+            "opt_g.orbax", "trainer.json"]
+        resumed = CNNTrainer.create_from_cli(
+            argv + ["--resume-training-step", "1", "--epochs", "0"])
+        resumed.train()
+        saved = jax.tree_util.tree_leaves_with_path(
+            trainer.checkpoint_artifacts())
+        back = jax.tree_util.tree_leaves_with_path(
+            resumed.checkpoint_artifacts())
+        assert [k for k, _ in saved] == [k for k, _ in back]
+        for (key, a), (_, b) in zip(saved, back):
+            assert a.dtype == b.dtype and a.shape == b.shape, key
+            assert a.tobytes() == b.tobytes(), key
         return
     logs = main(_argv(tiny_archive, tmp_path, "--batch-size", "24", *flag))
     for key in ("g_loss", "d_loss", "gp"):

@@ -2,6 +2,7 @@
 program (``.pt2``) against G and the JAX StableHLO artifact, and the
 attention custom op that lets ``torch.export`` record K1 by name.
 """
+import torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 

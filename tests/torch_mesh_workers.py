@@ -18,6 +18,9 @@ from tartangan_torch.parallel import mesh as M
 from tartangan_torch.train.cnn import CNNTrainer
 
 B = 16
+# seconds: the bound on a whole spawned mesh run in the tests (each
+# collective and the wait for the ranks), so a stuck rank fails its test
+SPAWN_TIMEOUT = 300
 
 
 class FusedGTrainer(CNNTrainer):
@@ -294,3 +297,13 @@ def collectives_check():
     return {"b": b.detach().numpy(), "gb": gb.numpy(),
             "s": s.detach().numpy(), "gs": gs.detach().numpy(),
             "ggs": ggs.numpy()}
+
+
+def stuck_worker(seconds):
+    """Rank 1 hangs; rank 0 waits for it in a collective."""
+    import time
+
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        time.sleep(seconds)
+    dist.all_reduce(torch.zeros(1))
