@@ -1,0 +1,16 @@
+"""K2's share of its roofline, %: the least time of the traced steps' K2
+launches (``flops.kernel_bound_ms``) over K2's device time; nothing where
+no K2 ran."""
+from portbench import flops
+
+
+def read(run):
+    t = run.trace
+    if t is None or not t.k2_ns:
+        return None
+    b, dtype = run.traffic["batch_size"], run.cfg["dtype"]
+    bound = sum(flops.kernel_bound_ms(run.arch, b, r1,
+                                      flops.PEAKS["itemsize"][dtype],
+                                      flops.peak_flops(dtype))["k2"]
+                for r1 in run.trace_r1)
+    return 100.0 * bound / (t.k2_ns / 1e6)
