@@ -23,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import tracing
+
 SRC = Path(__file__).resolve().parent / "crop.cpp"
 ZSTD_SRC = Path(__file__).resolve().parent / "zstd.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -64,17 +66,21 @@ def build(src: Path = None, flags=FLAGS, stem: str = "libtartangan_native",
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library, built if needed."""
+    """The loaded library, built if needed; the first load is a
+    ``setup.libs`` span, noted with whether it compiled."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            i64, ptr = ctypes.c_int64, ctypes.c_void_p
-            lib.crop_batch_u8.argtypes = [ptr, i64, i64, i64, ptr, i64, ptr,
-                                          ptr, i64, ptr]
-            lib.crop_batch_u8.restype = None
-            lib.gather_batch_u8.argtypes = [ptr, i64, ptr, i64, ptr]
-            lib.gather_batch_u8.restype = None
+            with tracing.span("setup.libs", always=True) as span:
+                span.set(lib="native_crop",
+                         compiled=not library_path().exists())
+                lib = ctypes.CDLL(str(build()))
+                i64, ptr = ctypes.c_int64, ctypes.c_void_p
+                lib.crop_batch_u8.argtypes = [ptr, i64, i64, i64, ptr, i64,
+                                              ptr, ptr, i64, ptr]
+                lib.crop_batch_u8.restype = None
+                lib.gather_batch_u8.argtypes = [ptr, i64, ptr, i64, ptr]
+                lib.gather_batch_u8.restype = None
             _LIB = lib
         return _LIB
 

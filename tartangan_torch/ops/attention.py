@@ -42,22 +42,22 @@ the same code runs the plain versions (``attention_plain`` with
 ``attention_lse_plain``, and ``attention_bwd_from_stats_plain``, K2's own
 math from o and lse), so the CPU tests exercise the wiring itself.
 ``attention.launches`` and ``attention_bwd.launches`` count kernel
-launches (one per call of either kernel; K2's three launches count once).
+launches (one per call of either kernel; K2's three launches count once;
+``utils/tracing.py::count_launch``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
+from ..utils import tracing
 from . import build
 
 MAX_CK = 64   # widest q/k head the kernels instantiate
 MAX_CV = 128  # widest v head the backward kernel instantiates
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_COUNT_LOCK = threading.Lock()
 LOG2E = 1.0 / math.log(2.0)
 
 
@@ -150,14 +150,6 @@ def _check_kernel(name, *ts):
                          f"got {q.shape[0]}")
 
 
-def _count(fn, dtype):
-    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
-    them all, ``fn.launches_by_dtype`` each dtype's."""
-    with _COUNT_LOCK:
-        fn.launches += 1
-        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
-
-
 def _fwd(q, k, v, with_lse):
     """(o, lse): K1 for CUDA tensors, ``attention_plain`` (and
     ``attention_lse_plain``) for CPU tensors; lse is None unless
@@ -182,7 +174,7 @@ def _fwd(q, k, v, with_lse):
                  b, lq, lk, ck, cv, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
-    _count(attention, q.dtype)
+    tracing.count_launch(attention, q.dtype)
     return out, lse
 
 
@@ -217,7 +209,7 @@ def _bwd(q, k, v, do, o, lse):
                  b, lq, lk, ck, cv, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
-    _count(attention_bwd, q.dtype)
+    tracing.count_launch(attention_bwd, q.dtype)
     return dq, dk, dv
 
 
@@ -269,6 +261,7 @@ def _attention_op_fake(q, k, v):
     return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
 
 
+@tracing.counted
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v, differentiable: the CUDA kernels for CUDA tensors,
@@ -279,6 +272,7 @@ def attention(q: torch.Tensor, k: torch.Tensor,
     return attention_op(q, k, v)
 
 
+@tracing.counted
 def attention_bwd(q, k, v, do):
     """(dq, dk, dv) of ``attention``, itself differentiable: K1 for o and
     lse, then K2, for CUDA tensors; the plain versions for CPU tensors."""
@@ -291,9 +285,3 @@ def attention_bwd(q, k, v, do):
     with torch.no_grad():
         o, lse = _fwd(q, k, v, with_lse=True)
     return _AttentionBwd.apply(q, k, v, do, o, lse)
-
-
-attention.launches = 0
-attention.launches_by_dtype = {}
-attention_bwd.launches = 0
-attention_bwd.launches_by_dtype = {}

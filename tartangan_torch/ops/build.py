@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"attention_fwd": "attention_fwd.cu",
@@ -110,13 +112,16 @@ def _build_stale(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel source ``name``, built if stale."""
+    """The loaded library for kernel source ``name``, built if stale; the
+    first load is a ``setup.libs`` span, noted with whether it compiled."""
     with _LOCK:
         if name not in _LIBS:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (argtypes, restype) in SIGNATURES.get(name, {}).items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
+            with tracing.span("setup.libs", always=True) as span:
+                span.set(lib=name, compiled=bool(build([name])))
+                lib = ctypes.CDLL(str(library_path(name)))
+                signatures = SIGNATURES.get(name, {})
+                for fn, (argtypes, restype) in signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return _LIBS[name]

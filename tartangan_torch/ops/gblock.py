@@ -42,16 +42,16 @@ compute dtype.
 ``_gblock_reference``, recomputed (first order only, so G-side only). For
 CUDA tensors ``gblock_a``/``gblock_b`` launch the kernels or raise; for CPU
 tensors they run ``gblock_a_plain``/``gblock_b_plain``. ``gblock_a.launches``
-and ``gblock_b.launches`` count kernel launches.
+and ``gblock_b.launches`` count kernel launches
+(``utils/tracing.py::count_launch``).
 """
 from __future__ import annotations
-
-import threading
 
 import torch
 import torch.nn.functional as F
 
 from ..parallel import collectives as C
+from ..utils import tracing
 from ..utils.precision import rounded, wide
 from . import build
 from .parity import (
@@ -68,7 +68,6 @@ PARAMS = ("w1", "b1", "w2", "b2", "wp", "bp", "s1", "o1", "s2", "o2")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the library of each dtype's instances (``ops/build.py``)
 _LIBRARY = {torch.float32: "gblock", torch.bfloat16: "gblock_bf16"}
-_COUNT_LOCK = threading.Lock()
 
 
 def _act(x):
@@ -142,14 +141,6 @@ def gblock_b_plain(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
     return (y + sc.repeat(1, 1, 1, 4)).to(dt)
 
 
-def _count(fn, dtype):
-    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
-    them all, ``fn.launches_by_dtype`` each dtype's."""
-    with _COUNT_LOCK:
-        fn.launches += 1
-        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
-
-
 def _check(name, x, w, vectors, *ts, acts=()):
     """What both kernels take: NHWC x, a (Cout, Ci, 3, 3) weight, vectors
     of the given lengths, on one device (cpu or cuda); x and ``acts`` float32
@@ -209,6 +200,7 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@tracing.counted
 def gblock_a(x, m1, v1, s1, o1, w1, b1):
     """K4 for CUDA tensors (pack, main and reduce launches in one C call),
     ``gblock_a_plain`` for CPU tensors: (y1p, (2, 4*Cout) sums)."""
@@ -235,10 +227,11 @@ def gblock_a(x, m1, v1, s1, o1, w1, b1):
             _DTYPES[x.dtype], _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_a kernel launch failed: cudaError {err}")
-    _count(gblock_a, x.dtype)
+    tracing.count_launch(gblock_a, x.dtype)
     return y1p, stats
 
 
+@tracing.counted
 def gblock_b(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
     """K5 for CUDA tensors (pack and main launches in one C call),
     ``gblock_b_plain`` for CPU tensors: out_p. ``wp = bp = None`` is the
@@ -274,7 +267,7 @@ def gblock_b(y1p, x, m2, v2, s2, o2, w2, b2, wp, bp):
             _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gblock_b kernel launch failed: cudaError {err}")
-    _count(gblock_b, x.dtype)
+    tracing.count_launch(gblock_b, x.dtype)
     return out
 
 
@@ -370,9 +363,3 @@ def fused_gblock(x, params, use_kernel=True):
         return out, tuple(s.detach() for s in stats)
     out, *stats = _FusedGBlock.apply(x, *(params.get(k) for k in PARAMS))
     return out, tuple(stats)
-
-
-gblock_a.launches = 0
-gblock_a.launches_by_dtype = {}
-gblock_b.launches = 0
-gblock_b.launches_by_dtype = {}

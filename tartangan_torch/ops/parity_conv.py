@@ -18,7 +18,8 @@ parity blocks use it (the R1 penalty differentiates D twice).
 
 For CUDA tensors ``merged_tap_conv`` launches the kernel or raises; for CPU
 tensors it runs ``fused_parity_conv_plain`` (``conv_parity2`` with the 2x2
-packers). ``merged_tap_conv.launches`` counts kernel launches.
+packers). ``merged_tap_conv.launches`` counts kernel launches
+(``utils/tracing.py::count_launch``).
 
 x is float32 or bfloat16 (the compute dtype); the weight and the bias are
 the float32 parameters. In bfloat16 the kernel rounds where the TPU kernel
@@ -29,10 +30,9 @@ bfloat16, is added to it in bfloat16 (``:193``).
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from ..utils import tracing
 from ..utils.precision import wide
 from . import build
 from .remat import reuse
@@ -45,7 +45,6 @@ from .parity import (
     pack_up_conv2,
 )
 
-_COUNT_LOCK = threading.Lock()
 _MODES = ("up", "full")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the library of each dtype's instances (``ops/build.py``)
@@ -95,14 +94,7 @@ def fused_parity_conv_plain(x, w_raw, cout, mode, bias=None):
     return y.permute(0, 2, 3, 1)
 
 
-def _count(fn, dtype):
-    """One launch of ``fn``'s kernel, in ``dtype``: ``fn.launches`` counts
-    them all, ``fn.launches_by_dtype`` each dtype's."""
-    with _COUNT_LOCK:
-        fn.launches += 1
-        fn.launches_by_dtype[dtype] = fn.launches_by_dtype.get(dtype, 0) + 1
-
-
+@tracing.counted
 def merged_tap_conv(x, w_raw, cout, mode, bias=None):
     """(B, H, W, 4*cout) merged-tap parity conv of NHWC ``x`` plus
     ``tile(bias, 4)`` if given: K3 for CUDA tensors (one launch, the bias
@@ -135,7 +127,7 @@ def _merged_tap_conv(x, w_raw, cout, mode, bias):
                  stream)
     if err != 0:
         raise RuntimeError(f"parity_conv kernel launch failed: cudaError {err}")
-    _count(merged_tap_conv, x.dtype)
+    tracing.count_launch(merged_tap_conv, x.dtype)
     return out
 
 
@@ -167,7 +159,3 @@ def fused_parity_conv(x, w_raw, b, cout, mode):
     forward (or its plain version on the CPU), the 3x3-packed form's
     vector-Jacobian product backward."""
     return _FusedParityConv.apply(x, w_raw, b, cout, mode)
-
-
-merged_tap_conv.launches = 0
-merged_tap_conv.launches_by_dtype = {}

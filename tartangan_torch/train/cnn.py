@@ -32,6 +32,7 @@ from ..models.layers import update_batch_stats
 from ..models.losses import bce_with_logits, r1_gradient_penalty
 from ..models.pluggan import Discriminator, Generator
 from ..ops.init import init_module_
+from ..utils import tracing
 from .common import (
     bce_labels,
     ema_update,
@@ -51,7 +52,9 @@ def gan_update(state, real, z_d, z_g, *, gp_weight, ema_factor,
     latent) and ``z_g`` (B, latent) are the latents; ``noise_d``
     (iters_d, ...) and ``noise_g``, when given, go to G's applies as
     ``noise`` (the scene generator's patch noise). Returns 0-d device
-    tensors ``g_loss``, ``d_loss`` and ``gp``."""
+    tensors ``g_loss``, ``d_loss`` and ``gp``. Each D update is a
+    ``step.d`` span and the G update a ``step.g`` span
+    (``utils/tracing.py``)."""
     g, d = state.g, state.d
     batch_size = real.shape[0]
     labels = bce_labels(batch_size, device=real.device)
@@ -59,35 +62,37 @@ def gan_update(state, real, z_d, z_g, *, gp_weight, ema_factor,
     for it in range(iters_d):
         # ---- D step. G's forward keeps its batch-stat update (JAX's
         # g_stats1) but builds no graph
-        g_kwargs = {} if noise_d is None else {"noise": noise_d[it]}
-        with torch.no_grad(), update_batch_stats(g):
-            fake = g(z_d[it], train=True, **g_kwargs)
-        state.opt_d.zero_grad(set_to_none=True)
-        with update_batch_stats(d):
-            if gp_weight:
-                gp, p_real = r1_gradient_penalty(
-                    d, real.detach().requires_grad_())
-            else:
-                p_real = d(real, train=True)
-            p_fake = d(fake, train=True)
-        loss = bce_with_logits(torch.cat([p_real, p_fake], 0), labels)
-        d_total = loss + gp_weight * gp
-        d_total.backward()
-        state.opt_d.step()
+        with tracing.span("step.d"):
+            g_kwargs = {} if noise_d is None else {"noise": noise_d[it]}
+            with torch.no_grad(), update_batch_stats(g):
+                fake = g(z_d[it], train=True, **g_kwargs)
+            state.opt_d.zero_grad(set_to_none=True)
+            with update_batch_stats(d):
+                if gp_weight:
+                    gp, p_real = r1_gradient_penalty(
+                        d, real.detach().requires_grad_())
+                else:
+                    p_real = d(real, train=True)
+                p_fake = d(fake, train=True)
+            loss = bce_with_logits(torch.cat([p_real, p_fake], 0), labels)
+            d_total = loss + gp_weight * gp
+            d_total.backward()
+            state.opt_d.step()
 
     # ---- G step: only G's parameters are differentiated; D's batch stats
     # still update (JAX's d_stats3)
-    g_kwargs = {} if noise_g is None else {"noise": noise_g}
-    d.requires_grad_(False)
-    try:
-        state.opt_g.zero_grad(set_to_none=True)
-        with update_batch_stats(g, d):
-            p = d(g(z_g, train=True, **g_kwargs), train=True)
-        g_loss = bce_with_logits(p, torch.ones_like(p))
-        g_loss.backward()
-    finally:
-        d.requires_grad_(True)
-    state.opt_g.step()
+    with tracing.span("step.g"):
+        g_kwargs = {} if noise_g is None else {"noise": noise_g}
+        d.requires_grad_(False)
+        try:
+            state.opt_g.zero_grad(set_to_none=True)
+            with update_batch_stats(g, d):
+                p = d(g(z_g, train=True, **g_kwargs), train=True)
+            g_loss = bce_with_logits(p, torch.ones_like(p))
+            g_loss.backward()
+        finally:
+            d.requires_grad_(True)
+        state.opt_g.step()
 
     # ---- EMA target generator
     ema_update(g, state.g_target, ema_factor)

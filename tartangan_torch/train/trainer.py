@@ -13,7 +13,10 @@ archive kept there (``data/device.py``); the step normalizes them.
 Latents (and the device archive's draws) come from the trainer's own
 ``torch.Generator``, seeded by ``--seed``, on the training device.
 ``--steps-per-call K`` runs K steps a call (``train/multi.py``), replayed
-from captured CUDA graphs on the card.
+from captured CUDA graphs on the card. The set-up and each turn of the loop
+are spans (``utils/tracing.py``): ``setup.models``, ``setup.data``, then
+``train.data`` (the next batch), ``train.hooks`` (the components) and
+``train.step`` (one call).
 
 ``--num-devices N`` and ``--tp T`` run the trainer on a mesh of N ranks,
 one process each (``parallel/``; ``run_cli`` starts them). ``--batch-size``
@@ -57,6 +60,7 @@ from ..data.prefetch import EpochBatcher, prefetch_to_device
 from ..ops.remat import POLICIES
 from ..parallel import collectives as C
 from ..parallel import mesh as M
+from ..utils import tracing
 from ..utils.cli import save_cli_arguments, type_or_none
 from ..utils.fs import is_s3_path, maybe_makedirs
 from ..utils.precision import full_float32, resolve_dtype
@@ -64,6 +68,9 @@ from ..utils.scalars import last_scalar
 from .components.container import ComponentContainer
 from .multi import GraphedChunk, chunk_train_step, stack_batches
 from .progress import ProgressLine
+
+_END = object()  # past an epoch's last batch (--device-data's are None)
+
 
 def _train_cli(trainer_path: str, argv):
     """One rank's (or the only process's) run of a trainer's CLI:
@@ -264,12 +271,14 @@ class Trainer:
 
     # ------------------------------------------------------------ train loop
     def train(self):
-        self.build_models()
-        self._setup_mesh_state()
+        with tracing.span("setup.models", always=True):
+            self.build_models()
+            self._setup_mesh_state()
         print(f"Preparing dataset from {self.args.data_path}")
-        self.dataset = self.prepare_dataset()
-        if self.args.device_data:
-            self._setup_device_data()
+        with tracing.span("setup.data", always=True):
+            self.dataset = self.prepare_dataset()
+            if self.args.device_data:
+                self._setup_device_data()
         batcher = EpochBatcher(self.dataset, self.args.batch_size,
                                seed=self.args.seed)
         logs = defaultdict(list)
@@ -305,8 +314,9 @@ class Trainer:
             while self.epoch <= self.args.epochs:
                 if not self.args.quiet_logs:
                     print(f"Starting epoch {self.epoch}")
-                self.components.invoke(
-                    "epoch_begin", self.steps, self.epoch, logs)
+                with tracing.span("train.hooks"):
+                    self.components.invoke(
+                        "epoch_begin", self.steps, self.epoch, logs)
                 progress.epoch_begin(self.epoch, num_batches)
                 epoch_batches = 0
                 if self.args.device_data:
@@ -321,12 +331,21 @@ class Trainer:
                     batch_iter = prefetch_to_device(
                         (self.shard(b) for b in batcher.epoch()),
                         self.device)
-                for batch in batch_iter:
-                    self.components.invoke("batch_begin", self.steps, logs)
-                    training_metrics = C.sum_metrics(self.train_batch(batch))
-                    for name, value in training_metrics.items():
-                        logs[name].append(value)
-                    self.components.invoke("batch_end", self.steps, logs)
+                while True:
+                    tracing.begin_step(self.steps)
+                    with tracing.span("train.data"):
+                        batch = next(batch_iter, _END)
+                    if batch is _END:
+                        break
+                    with tracing.span("train.hooks"):
+                        self.components.invoke("batch_begin", self.steps, logs)
+                    with tracing.span("train.step"):
+                        training_metrics = C.sum_metrics(
+                            self.train_batch(batch))
+                        for name, value in training_metrics.items():
+                            logs[name].append(value)
+                    with tracing.span("train.hooks"):
+                        self.components.invoke("batch_end", self.steps, logs)
                     epoch_batches += k
                     li = self.args.log_iters
                     # the call [steps, steps + K) crosses a multiple of
@@ -339,8 +358,9 @@ class Trainer:
                                         training_metrics)
                     self.steps += k
                 progress.epoch_end()
-                self.components.invoke(
-                    "epoch_end", self.steps, self.epoch, logs)
+                with tracing.span("train.hooks"):
+                    self.components.invoke(
+                        "epoch_end", self.steps, self.epoch, logs)
                 if (self.epoch == 1 and self.args.cache_dataset
                         and hasattr(self.dataset, "save_cache")):
                     self.dataset.save_cache(

@@ -44,6 +44,8 @@ def test_trainer_writes_trace_and_logs_rate(tiny_archive, tmp_path):
     trace = json.loads((trace_dir / "trace_1.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("conv" in n for n in names)
+    # the program's spans (utils/tracing.py), as an operator sees them
+    assert {"train.step", "train.data", "step.d"} <= names
     rates = trainer.logs["images_per_sec"]
     assert len(rates) == 2 and all(np.isfinite(rates)) and min(rates) > 0
 
