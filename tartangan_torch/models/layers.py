@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import conv2d
 from ..parallel import collectives as C
 from ..utils.precision import apply_in_dtype, rounded
 
@@ -183,14 +184,16 @@ def full_weight(layer: nn.Module) -> torch.Tensor:
 
 
 class _Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in its input's dtype (flax's ``Conv`` with ``dtype``)."""
+    """``nn.Conv2d`` in its input's dtype (flax's ``Conv`` with ``dtype``),
+    whose derivatives of every order are fprop, dgrad and wgrad
+    convolutions (``ops/conv.py``)."""
     tp = None  # the model group when --tp shards the weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
             return _column_parallel(self, F.conv2d, x, 1,
                                     padding=self.padding)
-        return apply_in_dtype(F.conv2d, x, self.weight, self.bias,
+        return apply_in_dtype(conv2d, x, self.weight, self.bias,
                               padding=self.padding)
 
 

@@ -821,3 +821,80 @@ def test_capturable_adam_matches_plain(cuda):
                 torch.testing.assert_close(st[key], st0[key], rtol=1e-6,
                                            atol=0)
             assert float(st["step"]) == float(st0["step"]) == 3.0
+
+
+def _kernels_under(event):
+    """The device kernels launched inside a profiler CPU event."""
+    names = [k.name for k in event.kernels]
+    for child in event.cpu_children:
+        names += _kernels_under(child)
+    return names
+
+
+@pytest.mark.cuda
+def test_r1_d_update_matches_autograd_without_image_sized_filters(
+        cuda, monkeypatch):
+    """One bfloat16 D update with R1 of '512thin''s D at B 4: every
+    parameter's gradient through ``ops/conv.py`` against plain autograd
+    (``F.conv2d`` and ATen's own double backward), after dividing by the
+    plain gradients' max-abs (a conv bias ahead of a train-mode BatchNorm
+    has a rounding-noise gradient); one R1 weight term for each of D's 23
+    2-D convs; and no ``aten::convolution`` of autograd's (C, B, H, W) form,
+    a filter as wide as its input, so none of the "indexed" kernels cuDNN
+    runs for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tartangan_torch.configs import GAN_CONFIGS
+    from tartangan_torch.models import factories as MF
+    from tartangan_torch.models import layers
+    from tartangan_torch.models.attention import SelfAttention2d
+    from tartangan_torch.models.losses import (
+        bce_with_logits,
+        r1_gradient_penalty,
+    )
+    from tartangan_torch.models.pluggan import Discriminator
+    from tartangan_torch.ops import conv
+    from tartangan_torch.train.common import bce_labels
+
+    b = 4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    real, fake = (torch.rand(b, 3, 512, 512, device=cuda, generator=gen)
+                  * 2 - 1 for _ in range(2))
+
+    def update():
+        torch.manual_seed(0)
+        d = Discriminator(GAN_CONFIGS["512thin"],
+                          input_factory=MF.d_input_factory(),
+                          block_factory=MF.d_block_factory("bn", "relu"),
+                          output_factory=MF.d_output_factory("bn", "relu"),
+                          dtype=torch.bfloat16).to(cuda)
+        for m in d.modules():
+            if isinstance(m, SelfAttention2d):
+                m.gamma.data.fill_(0.7)  # the attention counts
+        before = conv.weight_term.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            gp, p_real = r1_gradient_penalty(d, real.clone().requires_grad_())
+            loss = bce_with_logits(torch.cat([p_real, d(fake)], 0),
+                                   bce_labels(b, device=cuda))
+            (loss + 5.0 * gp).backward()
+            torch.cuda.synchronize()
+        forms = [e for e in prof.events() if e.name == "aten::convolution"
+                 and e.input_shapes[1][2:] == e.input_shapes[0][2:]]
+        return ([p.grad.float() for p in d.parameters()], forms,
+                conv.weight_term.launches - before)
+
+    ours, forms, terms = update()
+    assert forms == [] and terms == 23
+    monkeypatch.setattr(layers, "conv2d", torch.nn.functional.conv2d)
+    ref, ref_forms, ref_terms = update()
+    assert ref_forms and ref_terms == 0  # the form is there without it
+    print("plain autograd's (C, B, H, W) convolutions ran",
+          sorted({k for e in ref_forms for k in _kernels_under(e)}))
+    scale = max(float(g.abs().max()) for g in ref)
+    worst = max(float((a - r).abs().max()) for a, r in zip(ours, ref))
+    print(f"largest gradient difference / max-abs: {worst / scale:.3e}")
+    for a, r in zip(ours, ref):
+        torch.testing.assert_close(a / scale, r / scale,
+                                   **TOL[torch.bfloat16])
