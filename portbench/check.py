@@ -1,10 +1,11 @@
 """The comparison that decides a run's ``correct``.
 
 The program's first steps (the set-up's, through the window's own loop)
-are held against the same steps of the plain reference
-(``portbench/reference.py``) on the same weights, rows and latents. Four
-numbers, each steady from seed to seed (``PERF.md`` gives the readings,
-and the look that led from the worst leaf to these):
+are held against the same steps of the model's plain reference (the
+SA-GAN's: ``portbench/reference.py``) on the same weights, rows and draws
+(the latents, and any other draw the step takes). Four numbers, each
+steady from seed to seed (``PERF.md`` gives the readings, and the look
+that led from the worst leaf to these):
 
 - ``loss``: the first step's D loss (BCE on reals and fakes + weight R1),
   |program - reference| / |reference|: G's and D's forwards, R1's input

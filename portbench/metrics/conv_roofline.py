@@ -9,8 +9,8 @@ def read(run):
     t = run.trace
     if t is None or not t.conv_ns:
         return None
-    b, dtype = run.traffic["batch_size"], run.cfg["dtype"]
-    bound = sum(flops.conv_bound_ms(run.arch, b, r1,
+    dtype = run.cfg["dtype"]
+    bound = sum(flops.conv_bound_ms(run.counts(r1),
                                     flops.PEAKS["itemsize"][dtype],
                                     flops.peak_flops(dtype))
                 for r1 in run.trace_r1)

@@ -8,8 +8,8 @@ def read(run):
     t = run.trace
     if t is None or not t.k2_ns:
         return None
-    b, dtype = run.traffic["batch_size"], run.cfg["dtype"]
-    bound = sum(flops.kernel_bound_ms(run.arch, b, r1,
+    dtype = run.cfg["dtype"]
+    bound = sum(flops.kernel_bound_ms(run.counts(r1),
                                       flops.PEAKS["itemsize"][dtype],
                                       flops.peak_flops(dtype))["k2"]
                 for r1 in run.trace_r1)

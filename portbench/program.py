@@ -1,10 +1,12 @@
-"""The system under test: tartangan_torch's CNN trainer, driven through its
-own loop (``Trainer.train``: the batcher, the pinned one-ahead copy to
-the device, ``train_batch``).
+"""The system under test: a tartangan_torch trainer, the one that the
+cell's model module names, driven through its own loop (``Trainer.train``:
+the batcher, the pinned one-ahead copy to the device, ``train_batch``).
 
-``BenchTrainer`` is ``CNNTrainer`` with a record of what the set-up's
-steps were fed: their batches and the latents the trainer drew. ``Window``
-is a trainer component: it loads the benchmark's weights before the first
+``bench_trainer`` makes the model's trainer class into one with a record
+of what the set-up's steps were fed: their batches and every draw each
+step took, by the name the model module gives it (``DRAWS``: the latents
+of ``draw_z`` and whatever ``extra_draws`` returns). ``Window`` is a
+trainer component: it loads the benchmark's weights before the first
 step, keeps what the check needs from the first steps, opens the measured
 window after the warm-up steps and, once ``seconds`` have passed, closes
 it; traced, it then profiles ``trace_steps`` more steps. It ends the loop
@@ -18,7 +20,6 @@ import time
 import numpy as np
 import torch
 
-from tartangan_torch.train.cnn import CNNTrainer
 from tartangan_torch.train.components.base import TrainerComponent
 
 from . import check
@@ -28,67 +29,70 @@ class WindowClosed(Exception):
     pass
 
 
-def trainer_argv(cfg: dict, traffic: dict, data_path: str, out_dir: str,
-                 seed: int, device: str) -> list:
-    """The CLI flags of the run: the configuration's and the traffic's,
-    every training setting spelled out."""
-    hp = cfg["train"]
-    return [data_path, "--config", cfg["program_config"],
-            "--batch-size", str(traffic["batch_size"]),
-            "--dtype", cfg["dtype"], "--parity-blocks", cfg["parity_blocks"],
-            "--g-base", "mlp", "--norm", "bn", "--activation", "relu",
-            "--lr-g", repr(hp["lr_g"]), "--lr-d", repr(hp["lr_d"]),
-            "--lr-target-g", repr(hp["ema"]),
-            "--grad-penalty", repr(hp["grad_penalty"]),
-            "--r1-interval", str(traffic["r1_interval"]), "--iters-d", "1",
-            "--steps-per-call", "1", "--ema-start", "copy",
-            "--seed", str(seed), "--output", out_dir, "--run-id", "portbench",
-            "--quiet-logs", "--epochs", str(10 ** 9), "--device", device]
-
-
-def parse_args(argv: list):
+def parse_args(trainer_cls, argv: list):
     parser = argparse.ArgumentParser()
-    CNNTrainer.add_args_to_parser(parser)
+    trainer_cls.add_args_to_parser(parser)
     args = parser.parse_args(argv)
     args._argv = list(argv)
     return args
 
 
-class BenchTrainer(CNNTrainer):
-    """The CNN trainer, recording what its first steps were fed."""
+def bench_trainer(trainer_cls):
+    """``trainer_cls`` with ``fed``: what its first steps were fed."""
 
-    def __init__(self, args, components, record_steps: int):
-        super().__init__(args, components)
-        self.record_steps = record_steps
-        self.fed = []  # (batch, latents) of the first steps, on the host
+    class BenchTrainer(trainer_cls):
+        def __init__(self, args, components, record_steps: int):
+            super().__init__(args, components)
+            self.record_steps = record_steps
+            self.fed = []  # (batch, {draw: tensor}) of the first steps, host
 
-    def draw_z(self, lead: tuple) -> torch.Tensor:
-        z = super().draw_z(lead)
-        if self.steps < self.record_steps:
-            self.fed[-1][1].append(z.cpu())
-        return z
+        def train_batch(self, batch):
+            with torch.profiler.record_function("portbench.step"):
+                return super().train_batch(batch)
 
-    def train_batch(self, batch):
-        if self.steps < self.record_steps:
-            self.fed.append((batch.cpu().numpy(), []))
-        with torch.profiler.record_function("portbench.step"):
-            return super().train_batch(batch)
+    return BenchTrainer
+
+
+def _named(draws: dict, args: tuple, kw: dict) -> dict:
+    """A step's draws by name: ``args`` in the order of ``draws``, then
+    ``kw``."""
+    return {**dict(zip(draws, args)), **kw}
+
+
+def record(trainer, draws: dict):
+    """Wrap the trainer's step to keep, for its first ``record_steps``
+    steps, the batch and each draw it is given (``draws``: the model's
+    ``DRAWS``) in ``trainer.fed``."""
+    def recorded(fn):
+        def step(state, batch, *args, **kw):
+            if trainer.steps < trainer.record_steps:
+                named = _named(draws, args, kw)
+                trainer.fed.append((batch.cpu().numpy(),
+                                    {k: v.cpu() for k, v in named.items()}))
+            return fn(state, batch, *args, **kw)
+        return step
+
+    trainer._train_step = recorded(trainer._train_step)
+    if trainer._train_step_alt is not None:
+        trainer._train_step_alt = recorded(trainer._train_step_alt)
 
 
 class Window(TrainerComponent):
     """Loads the weights, keeps the check's records, times the window and,
-    traced, profiles the steps after it. ``fault`` plants a fault in the
-    program's step, for the tests and the study of ``check.py``'s limits:
-    ``unchanged`` (the step returns the state as it was), ``half_batch``
-    (the step sees half the batch), ``negated_g`` (G's optimizer gets the
+    traced, profiles the steps after it. ``draws`` is the model's
+    ``DRAWS``. ``fault`` plants a fault in the program's step, beneath
+    the record of what it was fed, for the tests and the study of
+    ``check.py``'s limits: ``unchanged`` (the step returns the state as it
+    was), ``half_batch`` (the step sees half the batch and half of every
+    draw that has a batch axis), ``negated_g`` (G's optimizer gets the
     negated gradient)."""
 
-    def __init__(self, weights, *, check_steps, warm_steps, r1_interval,
-                 seconds, trace_steps=None, fault=None):
+    def __init__(self, weights, draws, *, check_steps, warm_steps,
+                 r1_interval, seconds, trace_steps=None, fault=None):
         super().__init__(None)
         if not 1 <= check_steps <= warm_steps:
             raise ValueError("the check's steps are warm-up steps")
-        self.weights = weights
+        self.weights, self.draws = weights, draws
         self.check_steps, self.warm_steps = check_steps, warm_steps
         self.r1_interval = r1_interval
         self.seconds, self.trace_steps = seconds, trace_steps
@@ -115,7 +119,8 @@ class Window(TrainerComponent):
                 names = dict(model.named_parameters()) if leaves else own
                 for name in names:
                     own[name].copy_(self.weights[key][name])
-        plant(t, self.fault)
+        plant(t, self.fault, self.draws)
+        record(t, self.draws)
 
     def _sync(self):
         if self.trainer.device.type == "cuda":
@@ -166,8 +171,9 @@ class Window(TrainerComponent):
             self.t0 = time.perf_counter()
 
 
-def plant(trainer, fault):
-    """Break the program's step underneath the loop (see ``Window``)."""
+def plant(trainer, fault, draws: dict):
+    """Break the program's step underneath the loop (see ``Window``);
+    ``draws`` is the model's ``DRAWS``."""
     if fault is None:
         return
     if fault == "negated_g":
@@ -186,12 +192,18 @@ def plant(trainer, fault):
         raise ValueError(f"unknown fault {fault!r}")
 
     def broken(fn):
-        def step(state, batch, z_d, z_g, **kw):
+        def step(state, batch, *args, **kw):
             if fault == "unchanged":
                 zero = torch.zeros((), device=batch.device)
                 return {"g_loss": zero, "d_loss": zero, "gp": zero}
             h = batch.shape[0] // 2
-            return fn(state, batch[:h], z_d[:, :h], z_g[:h], **kw)
+
+            def half(name, v):
+                axis = draws[name]
+                return v if axis is None else v.narrow(axis, 0, h)
+            args = [half(k, v) for k, v in zip(draws, args)]
+            kw = {k: half(k, v) for k, v in kw.items()}
+            return fn(state, batch[:h], *args, **kw)
         return step
 
     trainer._train_step = broken(trainer._train_step)
@@ -199,18 +211,20 @@ def plant(trainer, fault):
         trainer._train_step_alt = broken(trainer._train_step_alt)
 
 
-def run(cfg, traffic, weights, data_path, out_dir, seed, device, *,
+def run(model, cfg, traffic, weights, data_path, out_dir, seed, device, *,
         seconds, trace, fault=None):
-    """Train from ``weights`` through the warm-up, the window and, with
-    ``trace``, the traced steps. Returns (trainer, window component)."""
-    args = parse_args(trainer_argv(cfg, traffic, data_path, out_dir, seed,
-                                   device))
-    window = Window(weights, check_steps=traffic["check_steps"],
+    """Train model module ``model``'s trainer from ``weights`` through the
+    warm-up, the window and, with ``trace``, the traced steps. Returns
+    (trainer, window component)."""
+    trainer_cls = bench_trainer(model.trainer_class())
+    args = parse_args(trainer_cls, model.trainer_argv(
+        cfg, traffic, data_path, out_dir, seed, device))
+    window = Window(weights, model.DRAWS, check_steps=traffic["check_steps"],
                     warm_steps=traffic["warm_steps"],
                     r1_interval=traffic["r1_interval"], seconds=seconds,
                     trace_steps=traffic["trace_steps"] if trace else None,
                     fault=fault)
-    trainer = BenchTrainer(args, [window], traffic["check_steps"])
+    trainer = trainer_cls(args, [window], traffic["check_steps"])
     try:
         trainer.train()
     except WindowClosed:

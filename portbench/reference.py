@@ -363,10 +363,12 @@ class Trainer:
         self.opt_g = Adam(self.g.parameters(), hp["lr_g"], betas, eps)
         self.opt_d = Adam(self.d.parameters(), hp["lr_d"], betas, eps)
 
-    def step(self, batch_u8, z_d, z_g, gp_weight):
+    def step(self, batch_u8, draws, gp_weight):
+        """One step on the draws the program's step took: ``z_d`` (1, B,
+        latent; one D update) and ``z_g`` (B, latent)."""
         g, d = self.g, self.d
         real = normalize(batch_u8).to(self.dtype)
-        z_d, z_g = z_d.to(self.dtype), z_g.to(self.dtype)
+        z_d, z_g = draws["z_d"][0].to(self.dtype), draws["z_g"].to(self.dtype)
         b = real.shape[0]
         with torch.no_grad(), batch_stats(g):
             fake = g(z_d)
@@ -407,10 +409,10 @@ class Trainer:
         g_loss = bce(p, torch.ones_like(p))
         return g_loss, dict(zip(names, torch.autograd.grad(g_loss, params)))
 
-    def g_grads(self, z_g):
-        """G's gradient at the latents ``z_g``, as the G step takes it, with
-        nothing updated."""
-        return self._g_loss_grads(z_g.to(self.dtype))[1]
+    def g_grads(self, draws):
+        """G's gradient at a step's latents ``z_g``, as the G step takes
+        it, with nothing updated."""
+        return self._g_loss_grads(draws["z_g"].to(self.dtype))[1]
 
     def state(self):
         """name -> tensor of everything the check compares after the

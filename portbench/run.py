@@ -5,15 +5,18 @@
 from the root of a checkout (``python3 -m portbench.run`` works too). The
 cell ``W`` of ``BENCHMARK.json`` names a configuration (its file) and a
 traffic mix (``portbench/traffic/<traffic>.json``); its limits are in
-``portbench/limits/<W>.json`` and each metric's reader in
-``portbench/metrics/<metric>.py``, all found by name. A run makes the
-data and the weights from the seed, trains through the program's own loop
+``portbench/limits/<W>.json``, each metric's reader in
+``portbench/metrics/<metric>.py`` and the configuration's model (its
+``"model"`` key: the trainer, its draws, its reference and its counts) in
+``portbench/models/<model>.py``, all found by name. A run makes the data
+and the weights from the seed, trains through the program's own loop
 (``portbench/program.py``): the set-up's steps, which the check keeps, and
 the warm-up, then the window of ``S`` seconds (``--trace 1``: and then the
 traffic's ``trace_steps`` steps under the profiler), then holds the
-set-up's steps against the plain reference (``portbench/check.py``). It prints, as its
-last lines on standard error, each number compared with its limit, and as
-the last line of standard output the result as JSON.
+set-up's steps against the model's plain reference
+(``portbench/check.py``). It prints, as its last lines on standard error,
+each number compared with its limit, and as the last line of standard
+output the result as JSON.
 
 It exits with 2 and prints no result without the CUDA devices the cell
 needs, and with 3 if the JAX package or JAX was loaded.
@@ -42,7 +45,9 @@ def _process_start() -> float:
 
 START = _process_start()
 
+import functools  # noqa: E402
 import gc  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import shutil  # noqa: E402
@@ -78,10 +83,12 @@ def spec(workload: str, root: Path = ROOT) -> dict:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
     cell = cells[workload]
     config = {c["name"]: c for c in bench["configs"]}[cell["config"]]
+    cfg = load_json(root / config["file"])
     listed = lambda m: workload in m.get("workloads", [workload])  # noqa
     return {
         "cell": cell,
-        "config": load_json(root / config["file"]),
+        "config": cfg,
+        "model": model(cfg["model"]),
         "traffic": load_json(HERE / "traffic" / f"{cell['traffic']}.json"),
         "limits": load_json(HERE / "limits" / f"{workload}.json"),
         "end_to_end": [m for m in bench["end_to_end"] if listed(m)],
@@ -107,9 +114,9 @@ def reader(name: str):
     return module.read
 
 
-def architecture(cfg: dict) -> dict:
-    keys = ("base_size", "latent_dims", "data_dims", "blocks", "attention")
-    return {k: cfg[k] for k in keys}
+def model(name: str):
+    """The model module ``name`` (``portbench/models/<name>.py``)."""
+    return importlib.import_module(f"portbench.models.{name}")
 
 
 def train(s: dict, seed: int, seconds: float, trace: bool, device: str,
@@ -119,33 +126,36 @@ def train(s: dict, seed: int, seconds: float, trace: bool, device: str,
     ``dtype`` is for ``study.py`` alone."""
     import torch
 
-    from . import program, weights
+    from . import flops, program
     from .synthetic import make_tartans
-    cfg, traffic = dict(s["config"]), s["traffic"]
+    cfg, traffic, m = dict(s["config"]), s["traffic"], s["model"]
     if dtype is not None:
         cfg["dtype"] = dtype
     marks = {"torch": time.perf_counter()}
     sd = seeds(seed)
-    arch = architecture(cfg)
-    size = arch["base_size"] * 2 ** len(arch["blocks"])
-    archive = make_tartans(traffic["images"], size, sd["data"], device)
+    arch = m.architecture(cfg)
+    archive = make_tartans(traffic["images"], m.image_size(arch), sd["data"],
+                           device)
     marks["data"] = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="portbench-")
     try:
         np_path = os.path.join(tmp, "tartans.npz")
         np.savez(np_path, images=archive)
-        w = weights.make(arch, cfg["train"], sd["weights"], device)
+        w = m.make_weights(arch, cfg["train"], sd["weights"], device)
         marks["weights"] = time.perf_counter()
         trainer, window = program.run(
-            cfg, traffic, w, np_path, os.path.join(tmp, "out"),
+            m, cfg, traffic, w, np_path, os.path.join(tmp, "out"),
             sd["trainer"], device, seconds=seconds, trace=trace, fault=fault)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda = device.startswith("cuda")
-    # what the metric readers read: the cell, the window, the traced steps
-    # after it and their trace
+    # what the metric readers read: the cell, the model's counts of a step
+    # (``counts(r1)``), the window, the traced steps after it and their
+    # trace
     run = SimpleNamespace(
         cell=s["cell"], cfg=cfg, traffic=traffic, arch=arch,
+        counts=functools.partial(flops.counts, m, arch,
+                                 traffic["batch_size"]),
         steps=window.steps, step_r1=window.step_r1,
         window_s=window.t1 - window.t0, setup_s=window.t0 - START,
         images=window.steps * traffic["batch_size"],
@@ -172,25 +182,28 @@ def train(s: dict, seed: int, seconds: float, trace: bool, device: str,
     return run, prog, (archive, w)
 
 
-def reference_steps(s: dict, w: dict, batches: list, latents: list,
-                    device: str, quant=None, dtype=None) -> dict:
-    """The reference's steps on the given batches (uint8 NHWC, host) and
-    latents; its losses, first gradients and state after the first step
-    and after all."""
-    import torch
+def _on(draws: dict, device) -> dict:
+    return {k: v.to(device) for k, v in draws.items()}
 
-    from . import reference
-    reference.full_float32()
+
+def reference_steps(s: dict, w: dict, batches: list, draws: list,
+                    device: str, quant=None, dtype=None) -> dict:
+    """The model's reference's steps on the given batches (uint8 NHWC,
+    host) and draws (one dict a step); its losses, first gradients and
+    state after the first step and after all."""
+    import torch
+    ref = s["model"].reference
+    ref.full_float32()
     cfg, traffic = s["config"], s["traffic"]
     hp = cfg["train"]
-    trainer = reference.Trainer(architecture(cfg), hp, w, device, quant,
-                                dtype or torch.float32)
+    trainer = ref.Trainer(s["model"].architecture(cfg), hp, w, device, quant,
+                          dtype or torch.float32)
     out = {"losses": []}
-    for t, (batch, (z_d, z_g)) in enumerate(zip(batches, latents)):
+    for t, (batch, step_draws) in enumerate(zip(batches, draws)):
         r1 = hp["grad_penalty"] * traffic["r1_interval"] \
             if t % traffic["r1_interval"] == 0 else 0.0
         losses, grads = trainer.step(torch.from_numpy(batch).to(device),
-                                     z_d.to(device), z_g.to(device), r1)
+                                     _on(step_draws, device), r1)
         out["losses"].append({k: float(v) for k, v in losses.items()})
         if t == 0:
             out["grads"], out["after_1"] = grads, trainer.state()
@@ -198,21 +211,21 @@ def reference_steps(s: dict, w: dict, batches: list, latents: list,
     return out
 
 
-def g_grads_on(s: dict, w: dict, after_1: dict, z_g, device: str,
+def g_grads_on(s: dict, w: dict, after_1: dict, draws: dict, device: str,
                dtype=None) -> dict:
     """The reference's first G gradient (float32; ``dtype`` for
     ``study.py``), taken on the D of ``after_1`` (the other side's state
     after step 1: the D that its G step saw) from the weights, at step 1's
-    latents ``z_g``."""
+    ``draws``."""
     import torch
-
-    from . import reference
-    reference.full_float32()
+    ref = s["model"].reference
+    ref.full_float32()
     d = {n[2:]: t for n, t in after_1.items() if n.startswith("d.")}
-    trainer = reference.Trainer(architecture(s["config"]),
-                                s["config"]["train"], {"g": w["g"], "d": d},
-                                device, dtype=dtype or torch.float32)
-    return {n: t.float() for n, t in trainer.g_grads(z_g.to(device)).items()}
+    trainer = ref.Trainer(s["model"].architecture(s["config"]),
+                          s["config"]["train"], {"g": w["g"], "d": d},
+                          device, dtype=dtype or torch.float32)
+    return {n: t.float()
+            for n, t in trainer.g_grads(_on(draws, device)).items()}
 
 
 def before_state(w: dict) -> dict:
@@ -226,18 +239,19 @@ def before_state(w: dict) -> dict:
 
 def reference_of(s: dict, prog: dict, archive, w, device: str):
     """The reference's side of the check: its steps on the rows the program
-    was fed (found in the benchmark's own archive) and the latents the
-    program drew, and its first G gradient on the program's D after step
-    1. None where the rows fed are not distinct rows of the archive."""
+    was fed (found in the benchmark's own archive) and the draws the
+    program's steps took, and its first G gradient on the program's D
+    after step 1. None where the rows fed are not distinct rows of the
+    archive."""
     from . import program
     rows = program.rows_of([b for b, _ in prog["fed"]], archive)
     flat = [r for batch in rows for r in batch]
     if None in flat or len(set(flat)) != len(flat):
         return None
-    latents = [z for _, z in prog["fed"]]
-    ref = reference_steps(s, w, [archive[r] for r in rows], latents, device)
-    ref["g_grads_on_prog"] = g_grads_on(s, w, prog["after_1"],
-                                        latents[0][1], device)
+    draws = [d for _, d in prog["fed"]]
+    ref = reference_steps(s, w, [archive[r] for r in rows], draws, device)
+    ref["g_grads_on_prog"] = g_grads_on(s, w, prog["after_1"], draws[0],
+                                        device)
     ref["before"] = prog["before"] = before_state(w)
     return ref
 

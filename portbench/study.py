@@ -7,8 +7,9 @@
 unchanged|half_batch|negated_g``) runs the program's set-up steps and
 holds them against the reference, as a run does, without a measured
 window. ``--mode control`` puts the reference computed in fp8 in the
-program's place;
-``--mode witness`` the reference in float32 against the same in float64.
+program's place; ``--mode witness`` the reference in float32 against the
+same in float64. The cell's model module gives the data's size, the
+weights, the draws and the reference, as it does a run's.
 Each seed prints one JSON line (``details``). Needs a CUDA device unless
 ``--device cpu``.
 """
@@ -27,7 +28,7 @@ if __package__ in (None, ""):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import check, reference, run, weights  # noqa: E402
+from portbench import check, run  # noqa: E402
 from portbench.synthetic import make_tartans  # noqa: E402
 
 
@@ -67,41 +68,40 @@ def program_reading(s, seed, device, dtype, fault):
 
 
 def inputs(s, seed, device):
-    """The data, weights, rows and latents of a run's check, drawn by the
-    benchmark alone (for the readings without the program)."""
-    cfg, traffic = s["config"], s["traffic"]
+    """The weights, rows and draws of a run's check, made by the benchmark
+    alone (for the readings without the program)."""
+    cfg, traffic, m = s["config"], s["traffic"], s["model"]
     sd = run.seeds(seed)
-    arch = run.architecture(cfg)
-    size = arch["base_size"] * 2 ** len(arch["blocks"])
-    archive = make_tartans(traffic["images"], size, sd["data"], device)
-    w = weights.make(arch, cfg["train"], sd["weights"], device)
+    arch = m.architecture(cfg)
+    archive = make_tartans(traffic["images"], m.image_size(arch), sd["data"],
+                           device)
+    w = m.make_weights(arch, cfg["train"], sd["weights"], device)
     b, n = traffic["batch_size"], traffic["check_steps"]
     order = np.random.default_rng(sd["trainer"]).permutation(len(archive))
     batches = [archive[order[i * b:(i + 1) * b]] for i in range(n)]
     gen = torch.Generator(device=device).manual_seed(sd["trainer"])
-    latents = [[torch.randn(b, arch["latent_dims"], generator=gen,
-                            device=device) for _ in range(2)]
-               for _ in range(n)]
-    return w, batches, latents
+    draws = [m.draws(gen, b, arch, device) for _ in range(n)]
+    return w, batches, draws
 
 
 def pair_reading(s, seed, device, mode):
     """Side a, the reference in fp8 (``control``) or in float32
     (``witness``), in the program's place against side b, the reference
     in float32 or in float64."""
-    w, batches, latents = inputs(s, seed, device)
+    w, batches, draws = inputs(s, seed, device)
     if mode == "control":
-        a = run.reference_steps(s, w, batches, latents, device, reference.fp8)
-        b = run.reference_steps(s, w, batches, latents, device)
+        a = run.reference_steps(s, w, batches, draws, device,
+                                s["model"].reference.fp8)
+        b = run.reference_steps(s, w, batches, draws, device)
     else:
-        a = run.reference_steps(s, w, batches, latents, device)
-        b = run.reference_steps(s, w, batches, latents, device,
+        a = run.reference_steps(s, w, batches, draws, device)
+        b = run.reference_steps(s, w, batches, draws, device,
                                 dtype=torch.float64)
         b["grads"] = {k: {n: t.float() for n, t in v.items()}
                       for k, v in b["grads"].items()}
         b["after"] = {n: t.float() for n, t in b["after"].items()}
     b["g_grads_on_prog"] = run.g_grads_on(
-        s, w, a["after_1"], latents[0][1], device,
+        s, w, a["after_1"], draws[0], device,
         torch.float64 if mode == "witness" else None)
     a["before"] = b["before"] = run.before_state(w)
     return details(a, b)

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import check, reference, run, study
+from portbench import check, run, study
 
 CELLS = [w["name"] for w in json.loads(
     (Path(__file__).resolve().parents[2] / "BENCHMARK.json").read_text())[
@@ -37,11 +37,12 @@ def test_fault_fails(tiny, workload, fault):
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_fails(tiny, workload):
     s = tiny(workload)
-    w, batches, latents = study.inputs(s, 7, "cpu")
-    prog = run.reference_steps(s, w, batches, latents, "cpu", reference.fp8)
-    ref = run.reference_steps(s, w, batches, latents, "cpu")
-    ref["g_grads_on_prog"] = run.g_grads_on(s, w, prog["after_1"],
-                                            latents[0][1], "cpu")
+    w, batches, draws = study.inputs(s, 7, "cpu")
+    prog = run.reference_steps(s, w, batches, draws, "cpu",
+                               s["model"].reference.fp8)
+    ref = run.reference_steps(s, w, batches, draws, "cpu")
+    ref["g_grads_on_prog"] = run.g_grads_on(s, w, prog["after_1"], draws[0],
+                                            "cpu")
     prog["before"] = ref["before"] = run.before_state(w)
     numbers = check.compare(prog, ref)
     assert not check.judge(numbers, s["limits"]), numbers

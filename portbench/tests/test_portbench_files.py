@@ -25,15 +25,12 @@ def test_cell_loads_by_name(workload):
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_is_the_programs(config):
-    from tartangan_torch.configs import GAN_CONFIGS
+    # each key of the configuration that its model module says the
+    # program builds, as the program builds it
     cfg = run.load_json(ROOT / config["file"])
-    prog = GAN_CONFIGS[cfg["program_config"]]
     assert cfg["name"] == config["name"]
-    assert (prog.base_size, prog.latent_dims, prog.data_dims,
-            list(prog.blocks), list(prog.attention),
-            prog.num_blocks_per_scale) == (
-        cfg["base_size"], cfg["latent_dims"], cfg["data_dims"],
-        cfg["blocks"], cfg["attention"], cfg["num_blocks_per_scale"])
+    prog = run.model(cfg["model"]).programs_config(cfg)
+    assert prog and prog == {k: cfg[k] for k in prog}
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],

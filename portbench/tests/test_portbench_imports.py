@@ -22,7 +22,8 @@ print("LOADED", run.loaded_forbidden(),
 def _loaded(code):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=600).stdout
-    return [line for line in out.splitlines() if line.startswith("LOADED")]
+    return [line for line in out.splitlines()
+            if line.startswith(("LOADED", "REFERENCE"))]
 
 
 def test_a_run_loads_no_jax():
@@ -31,15 +32,30 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    code = ("import sys\nsys.path.insert(0, '.')\n"
+    # the check, the counts, the weights and every model module, whose
+    # program side loads only when it is called, with its reference
+    code = ("import importlib, pkgutil, sys\nsys.path.insert(0, '.')\n"
             "import portbench.reference, portbench.check, portbench.flops\n"
             "import portbench.weights, portbench.synthetic\n"
+            "import portbench.models as M\n"
+            "for m in pkgutil.iter_modules(M.__path__):\n"
+            "    ref = importlib.import_module(f'portbench.models.{m.name}')"
+            ".reference\n"
+            "    print('REFERENCE', ref.__file__)\n"
             "print('LOADED', sorted({m.split('.')[0] for m in sys.modules} &"
             " {'tartangan_torch', 'jax', 'tartangan_tpu'}))")
-    assert _loaded(code) == ["LOADED []"]
-    tree = ast.parse((ROOT / "portbench" / "reference.py").read_text())
-    names = {a.name.split(".")[0] for n in ast.walk(tree)
-             if isinstance(n, ast.Import) for a in n.names}
-    names |= {n.module.split(".")[0] for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and n.module}
-    assert names <= {"__future__", "contextlib", "torch"}, names
+    lines = _loaded(code)
+    assert lines[-1] == "LOADED []"
+    refs = {Path(line.split(" ", 1)[1]) for line in lines[:-1]}
+    assert ROOT / "portbench" / "reference.py" in refs
+    for path in refs:
+        tree = ast.parse(path.read_text())
+        names = {a.name.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.Import) for a in n.names}
+        names |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module}
+        # a model's reference may build on SA-GAN's, which builds on torch
+        base = path.name == "reference.py"
+        allowed = {"__future__", "contextlib", "torch"} | (
+            set() if base else {"portbench"})
+        assert names <= allowed, (path, names)

@@ -3,7 +3,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import check, reference, run, weights
+from portbench import check, reference, run
 from portbench.synthetic import make_tartans
 
 
@@ -58,8 +58,8 @@ def test_forward_with_attention_agrees(tiny):
     # two differ by the order of their sums alone
     s = tiny("sagan-512thin-r1-b64", blocks=(16, 16, 8), attention=(1,))
     cfg, hp = s["config"], s["config"]["train"]
-    arch = run.architecture(cfg)
-    w = weights.make(arch, hp, 11, "cpu")
+    arch = s["model"].architecture(cfg)
+    w = s["model"].make_weights(arch, hp, 11, "cpu")
     g, d = _port_models(cfg, hp, w)
     rg, rd = reference.build(arch, hp)
     rg.load_state_dict(w["g"])

@@ -1,11 +1,11 @@
 """The weights a run starts from, made by the benchmark from the seed.
 
 Both sides take these: the program has them copied into its modules, the
-reference loads them. Names and shapes are those of the reference's
-``state_dict`` (the program's names). All parameters come from one
-``torch.randn`` on the device, from a generator seeded by the run's seed,
-in float32 (the parameters' type in either precision), and are scaled by
-leaf:
+reference loads them. Names and shapes are those of the reference's G and
+D ``state_dict`` (the program's names), which a model module hands to
+``make``. All parameters come from one ``torch.randn`` on the device, from
+a generator seeded by the run's seed, in float32 (the parameters' type in
+either precision), and are scaled by leaf:
 
 - convolution and dense weights N(0, 1 / (3 fan_in)), as torch's default
   uniform init has it, and their biases likewise;
@@ -17,8 +17,6 @@ leaf:
 from __future__ import annotations
 
 import torch
-
-from . import reference
 
 
 def _scale(name: str, shapes: dict) -> tuple[float, float]:
@@ -34,9 +32,10 @@ def _scale(name: str, shapes: dict) -> tuple[float, float]:
     return (3.0 * fan_in) ** -0.5, 0.0
 
 
-def make(cfg: dict, hp: dict, seed: int, device) -> dict:
-    """{"g": state_dict, "d": state_dict} of configuration ``cfg``."""
-    g, d = reference.build(cfg, hp)
+def make(models: tuple, seed: int, device) -> dict:
+    """{"g": state_dict, "d": state_dict} for the reference's ``models``,
+    (G, D)."""
+    g, d = models
     out = {}
     gen = torch.Generator(device=device).manual_seed(seed)
     for key, model in (("g", g), ("d", d)):
