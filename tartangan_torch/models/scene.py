@@ -19,6 +19,11 @@ device tensor and a test can feed the JAX package's draw.
 ``config.blocks[scene_i:]`` (``scene_i = log2(scene_size / 4)``), as the
 reference does (:243-245): at '512thin' with scene size 16 the attention
 follows the fourth tower block, at 256x256 with 16 channels.
+
+Each ``StructuredSceneGenerator`` call runs its structure block (the
+transforms and masks, the noise, the grid and the sampling) inside a
+``scene.structure`` span (``utils/tracing.py``), recorded only where the
+port's spans are.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from torch import nn
 from ..configs import GANConfig
 from ..ops.grid_sample import affine_grid, grid_sample
 from ..ops.resize import upsample_nearest_2x
+from ..utils import tracing
 from ..utils.precision import wide
 from .attention import SelfAttention2d
 from .blocks import GeneratorOutput, ResidualGeneratorBlock
@@ -268,7 +274,8 @@ class StructuredSceneGenerator(_SceneBase):
 
     def forward(self, z: torch.Tensor, train: bool = True,
                 noise: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.structure_generator(z, train, noise=noise)
+        with tracing.span("scene.structure"):
+            x = self.structure_generator(z, train, noise=noise)
         x = x.to(self.dtype or z.dtype)
         for name in self.layers[1:]:
             x = getattr(self, name)(x, train)

@@ -2,7 +2,8 @@
 
 ``span(name)`` marks one stretch of the program: the trainer's loop
 (``train.data``, ``train.step``, ``train.hooks``), the step's updates
-(``step.d``, ``step.g``), the set-up (``setup.models``, ``setup.data``) and
+(``step.d``, ``step.g``), the scene generator's structure block
+(``scene.structure``), the set-up (``setup.models``, ``setup.data``) and
 the build or load of a compiled library (``setup.libs``). A span is
 recorded only while a ``torch.profiler`` records in this process
 (``--profile-dir``'s steps, a benchmark's traced steps), with two
