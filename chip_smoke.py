@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k1-ab OTHER/attention_fwd.cu [...]
     python3 chip_smoke.py --gblock-ab OTHER_DIR [...]
+    python3 chip_smoke.py --batch-norm
 
 The second form only builds the kernels and times K1 built from each given
 source (the same C entry point, e.g. a parent commit's) against the
@@ -14,7 +15,9 @@ source with the checkout's C arguments, or one of the parent commit's,
 which took packed weights: its packing then runs in PyTorch as its wrapper
 did), at the two '512thin' fused blocks' shapes, with each one's error
 against the plain version in float32 and float64; it also measures the
-card's TF32 ``mma.sync`` rate, K4/K5's yardstick.
+card's TF32 ``mma.sync`` rate, K4/K5's yardstick. The fourth builds only
+the BatchNorm kernels (``csrc/batch_norm.cu``) and times them at every
+BatchNorm shape of '512thin''s G and D at B 64 (``batch_norm_times``).
 
 Every kernel time is the kernel's own device time, read from
 ``torch.profiler`` (the durations of its device events over 20 launches);
@@ -1184,6 +1187,7 @@ def run_training(archive, batch_size):
                          attention_bwd.launches - before[1]))
         return metrics
     trainer.train_batch = counted
+    bn_per_step = count_batch_norm(trainer)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1211,6 +1215,8 @@ def run_training(archive, batch_size):
     if per_step != [(K1_PER_STEP, K2_PER_STEP)] * steps:
         raise AssertionError(f"expected ({K1_PER_STEP}, {K2_PER_STEP}) "
                              f"K1/K2 launches per step, got {per_step}")
+    hold_batch_norm_launches(f"train: '512thin' B{batch_size} float32",
+                             bn_per_step, steps)
     run_dir = out_root / run_id
     ckpt = run_dir / "checkpoints" / str(steps)
     for name in ("g", "g_target", "d", "opt_g", "opt_d"):
@@ -1354,6 +1360,53 @@ def parity_counters():
             "gblock_b": gblock_b}
 
 
+def count_batch_norm(trainer):
+    """Wraps ``trainer.train_batch`` so that each step appends (its
+    BatchNorm kernel calls, ``batch_norm.launches``; what a step with R1
+    makes, 3 n_G + 7 n_D) to the returned list, and sets the counter to 0:
+    each G BatchNorm runs forward twice (the D update's no-grad forward,
+    the G update) and backward once, each D BatchNorm forward three times
+    (reals with R1, fakes, the G update) and backward four times (R1's
+    gradient and the loss on the reals, the fakes, the G update); n_G and
+    n_D are the ``BatchNorm`` modules of G and D the step ran (the parity
+    blocks' folded BatchNorm and the fused blocks' K4/K5 are not one)."""
+    from tartangan_torch.models.layers import BatchNorm
+    from tartangan_torch.ops.batch_norm import batch_norm
+    per_step = []
+    train_batch = trainer.train_batch
+
+    def counted(batch):
+        ran = {"g": set(), "d": set()}
+        hooks = [m.register_forward_pre_hook(
+                     lambda mod, args, n=n: ran[n].add(mod))
+                 for n in ran for m in getattr(trainer.state, n).modules()
+                 if type(m) is BatchNorm]
+        before = batch_norm.launches
+        try:
+            metrics = train_batch(batch)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        per_step.append((batch_norm.launches - before,
+                         3 * len(ran["g"]) + 7 * len(ran["d"])))
+        return metrics
+    trainer.train_batch = counted
+    batch_norm.launches = 0
+    batch_norm.launches_by_dtype = {}
+    return per_step
+
+
+def hold_batch_norm_launches(label, per_step, steps):
+    """Each of ``steps`` steps made the BatchNorm kernel calls that
+    ``count_batch_norm`` expects, at least one."""
+    log(f"{label}: BatchNorm kernel calls per step (made, expected) "
+        f"{per_step}")
+    if len(per_step) != steps or any(n != want or not n
+                                     for n, want in per_step):
+        raise AssertionError(f"{label}: BatchNorm kernel calls per step "
+                             f"(made, expected) {per_step}")
+
+
 def phase_parity_train(archive, dtype="f32"):
     """Train full-width '512thin' at B 64 with --parity-blocks on,
     ``FUSED_G`` and the fused G blocks for 3 steps through the trainer's
@@ -1389,6 +1442,7 @@ def phase_parity_train(archive, dtype="f32"):
                          for k, f in counters.items()})
         return metrics
     trainer.train_batch = counted
+    bn_per_step = count_batch_norm(trainer)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1444,6 +1498,8 @@ def phase_parity_train(archive, dtype="f32"):
     if per_step != [want] * steps:
         raise AssertionError(f"expected {want} launches per step, got "
                              f"{per_step}")
+    hold_batch_norm_launches(f"parity train {str(compute)[6:]}",
+                             bn_per_step, steps)
     ckpt = out_root / run_id / "checkpoints" / str(steps)
     tree = msgpack.loads((ckpt / "g.msgpack").read_bytes())
     fused = tree["params"]["blocks_1"]
@@ -1588,9 +1644,15 @@ def layout_copies():
 
 def to_float64(model):
     """The model's parameters and its compute dtype in float64 (the
-    trainer builds G and D with its float32 or bfloat16 compute dtype)."""
+    trainer builds G and D with its float32 or bfloat16 compute dtype), its
+    BatchNorms on their plain version (the kernels take float32 and
+    bfloat16)."""
+    from tartangan_torch.models.layers import BatchNorm
     model.double()
     model.dtype = torch.float64
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.use_kernel = False
 
 
 FORMS = "parity, FUSED_G off and plain K4/K5"
@@ -2291,6 +2353,180 @@ def k1_ab(sources):
         raise AssertionError(f"K1 builds off the plain version beyond "
                              f"{TOL[torch.float32]}: {wrong}")
     return results
+
+
+BN_FWD_EVENTS = (kernel_names("stats_kernel", "stats_merge_kernel",
+                                "normalize_kernel"), 3)
+BN_BWD_EVENTS = (kernel_names("grad_sums_kernel", "grad_merge_kernel",
+                                "grad_input_kernel"), 3)
+# train-mode BatchNorm calls a '512thin' step with R1 makes of each module:
+# (forwards, backwards); R1's second-order terms run as plain ops
+BN_PER_STEP = {"G": (2, 1), "D": (3, 4)}
+
+
+def batch_norm_shapes(dev, b=64):
+    """{"G": Counter(shape), "D": ...}: the input shape of every train-mode
+    BatchNorm in one forward of '512thin''s G and D at B ``b`` (bf16)."""
+    from collections import Counter
+
+    from tartangan_torch.configs import GAN_CONFIGS
+    from tartangan_torch.models import factories as MF
+    from tartangan_torch.models.layers import BatchNorm
+    from tartangan_torch.models.pluggan import Discriminator, Generator
+    cfg = GAN_CONFIGS["512thin"]
+    g = Generator(cfg, input_factory=MF.g_input_factory("mlp", "relu"),
+                  block_factory=MF.g_block_factory("bn", "relu"),
+                  output_factory=MF.g_output_factory("bn", "relu"),
+                  dtype=torch.bfloat16).to(dev)
+    d = Discriminator(cfg, input_factory=MF.d_input_factory(),
+                      block_factory=MF.d_block_factory("bn", "relu"),
+                      output_factory=MF.d_output_factory("bn", "relu"),
+                      dtype=torch.bfloat16).to(dev)
+    shapes = {"G": Counter(), "D": Counter()}
+    for name, net in (("G", g), ("D", d)):
+        for m in net.modules():
+            if type(m) is BatchNorm:
+                m.register_forward_pre_hook(
+                    lambda mod, args, n=name: shapes[n].update(
+                        [tuple(args[0].shape)]))
+    with torch.no_grad():
+        d(g(torch.randn(b, cfg.latent_dims, device=dev)))
+    del g, d
+    return shapes
+
+
+def hold_batch_norm(x, dy, got, want):
+    """The kernels' outputs ``got`` against the plain versions' ``want``
+    on the same inputs, each (y, mean, var, rstd, running mean, running
+    var, dx, dw, db); raises on the first out of its tolerance, as
+    ``tests/test_torch_kernels_cuda.py::test_batch_norm_kernels_match_plain``
+    holds them: the statistics are float32 sums in another order (1e-5
+    relative), dw and db too (1e-5 of the sum of their terms' magnitudes);
+    y and dx are float32 results rounded once to x's dtype (1e-4 relative,
+    dx to its max-abs, in float32; one bf16 ulp, 2**-7 relative, in
+    bfloat16). Returns each one's max abs error."""
+    names = ("y", "mean", "var", "rstd", "running_mean", "running_var", "dx",
+             "dw", "db")
+    dims = [d for d in range(x.dim()) if d != 1]
+    view = (1, -1) + (1,) * (x.dim() - 2)
+    xhat = (x.float() - want[1].view(view)) * want[3].view(view)
+    sums = {"db": dy.float().abs().sum(dims),
+            "dw": (dy.float() * xhat).abs().sum(dims)}
+    rounded = (dict(rtol=1e-4, atol=1e-4) if x.dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=1e-4))
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        errs[name] = float((g - w).abs().max())
+        if name in sums:
+            bad = ((g - w).abs() > 1e-5 * sums[name] + 1e-6).any()
+            if bad:
+                raise AssertionError(f"batch_norm {tuple(x.shape)} "
+                                     f"{x.dtype}: {name} off by "
+                                     f"{errs[name]:.3g}")
+            continue
+        if name == "dx":
+            scale = float(w.abs().max())
+            g, w = g / scale, w / scale
+        tol = rounded if name in ("y", "dx") else dict(rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(g, w, **tol, msg=lambda m, n=name: (
+            f"batch_norm {tuple(x.shape)} {x.dtype}: {n}: {m}"))
+    return errs
+
+
+def batch_norm_times(dev):
+    """The BatchNorm kernels (``csrc/batch_norm.cu``) at every shape of
+    '512thin''s G and D at B 64 in bfloat16, and at the two largest in
+    float32: each held against the plain version (``hold_batch_norm``: y,
+    the statistics, the running update, dx, dw, db), the forward's and the
+    backward's device time (profiler, their three kernels) and call time
+    (CUDA events), beside the bytes bound (x read and y written once; dy
+    and x read and dx written once), the plain version (casts,
+    ``torch.var_mean``, ``F.batch_norm``, its autograd backward) and two
+    ``library`` forms without new code, each a forward and its autograd
+    backward: cuDNN's float32 ``F.batch_norm`` on a float32 copy of x
+    (``library_``) and ATen's mixed-type ``F.batch_norm`` on x in its own
+    dtype with float32 w and b (``library_own_``; its saved moments would
+    feed the running update); then the kernels', the plain version's and
+    the libraries' device ms a step with R1 (``BN_PER_STEP``)."""
+    import torch.nn.functional as F
+
+    from tartangan_torch.ops import batch_norm as BN
+    shapes = batch_norm_shapes(dev)
+    everything = sorted({s for c in shapes.values() for s in c},
+                        key=lambda s: -np.prod(s))
+    cases = [(s, torch.bfloat16) for s in everything] + [
+        (s, torch.float32) for s in everything[:2]]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows, ms = [], {}
+    for shape, dtype in cases:
+        c = shape[1]
+        x, dy = ((torch.randn(shape, device=dev, generator=gen) * 1.5
+                  + 0.3).to(dtype) for _ in range(2))
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = torch.randn(c, device=dev, generator=gen)
+        running = (torch.randn(c, device=dev, generator=gen),
+                   torch.rand(c, device=dev, generator=gen) + 0.5)
+        ref_running = tuple(t.clone() for t in running)
+        y, mean, var, rstd = BN._forward_kernel(x, w, b, 1e-5, *running, 0.9)
+        got = (y, mean, var, rstd, *running) + BN._backward_kernel(
+            dy, x, w, mean, rstd)
+        want = BN.batch_norm_plain(x, w, b, 1e-5, ref_running, 0.9)
+        want = want + ref_running + BN.batch_norm_backward_plain(
+            dy, x, w, want[1], want[3])
+        err = hold_batch_norm(x, dy, got, want)
+        del got, want, ref_running
+        xg = x.clone().requires_grad_()
+        ref = BN.batch_norm_plain(xg, w, b, 1e-5)[0]
+        x32, dy32 = x.float().requires_grad_(), dy.float()
+        lib = F.batch_norm(x32, None, None, w, b, training=True, eps=1e-5)
+        own = F.batch_norm(xg, None, None, w, b, training=True, eps=1e-5)
+
+        def fwd():
+            BN._forward_kernel(x, w, b, 1e-5, None, None, 0.9)
+
+        def bwd():
+            BN._backward_kernel(dy, x, w, mean, rstd)
+        row = {
+            "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "fwd_ms": device_ms(fwd, BN_FWD_EVENTS),
+            "bwd_ms": device_ms(bwd, BN_BWD_EVENTS),
+            "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd),
+            "fwd_bound_ms": 2 * x.nbytes / PEAK_BYTES * 1e3,
+            "bwd_bound_ms": 3 * x.nbytes / PEAK_BYTES * 1e3,
+            "plain_fwd_ms": cuda_ms(lambda: BN.batch_norm_plain(xg, w, b,
+                                                                1e-5)),
+            "plain_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                ref, (xg,), dy, retain_graph=True)),
+            "library_fwd_ms": cuda_ms(lambda: F.batch_norm(
+                x32, None, None, w, b, training=True, eps=1e-5)),
+            "library_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib, (x32,), dy32, retain_graph=True)),
+            "library_own_fwd_ms": cuda_ms(lambda: F.batch_norm(
+                xg, None, None, w, b, training=True, eps=1e-5)),
+            "library_own_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                own, (xg,), dy, retain_graph=True)),
+            "max_abs_err": err}
+        rows.append(row)
+        ms[(shape, dtype)] = row
+        log(f"batch_norm {shape} {row['dtype']}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms"))
+            + "; held against the plain version, max abs error "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
+        del x, dy, y, xg, ref, x32, dy32, lib, own
+    step = {}
+    for key in ("", "plain_", "library_", "library_own_"):
+        total = 0.0
+        for net, (fwds, bwds) in BN_PER_STEP.items():
+            for shape, calls in shapes[net].items():
+                r = ms[(shape, torch.bfloat16)]
+                total += calls * (fwds * r[f"{key}fwd_ms"]
+                                  + bwds * r[f"{key}bwd_ms"])
+        step[f"{key}ms_a_step"] = total
+    log(f"batch_norm a '512thin' step with R1 at B 64, bf16 ms: {step}")
+    return {"rows": rows, "step": step,
+            "shapes": {n: {str(list(s)): k for s, k in c.items()}
+                       for n, c in shapes.items()}}
 
 
 def build_gblock_variants(dirs):
@@ -5392,9 +5628,9 @@ def main():
     ab = sys.argv[1:]
     if ab and not ((ab[0] == "--k1-ab" and len(ab) >= 2)
                    or (ab[0] == "--gblock-ab" and len(ab) >= 2)
-                   or ab == [WITHOUT_KERNELS]):
+                   or ab == ["--batch-norm"] or ab == [WITHOUT_KERNELS]):
         print("usage: chip_smoke.py [--k1-ab OTHER_attention_fwd.cu ... | "
-              "--gblock-ab OTHER_DIR ...]", file=sys.stderr)
+              "--gblock-ab OTHER_DIR ... | --batch-norm]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -5429,7 +5665,9 @@ def main():
             f"{torch.__version__}, CUDA {torch.version.cuda}")
 
         t0 = time.perf_counter()
-        if ab:
+        if ab == ["--batch-norm"]:
+            logs = build.build(["batch_norm"])
+        elif ab:
             logs = build.build()
         else:
             # nvcc builds the kernels while the phases that launch none of
@@ -5453,6 +5691,10 @@ def main():
             for kernel, used, spill in ptxas_usage(text):
                 log(f"  ptxas {name} {kernel}: {used}; {spill}")
 
+        if ab == ["--batch-norm"]:
+            print(json.dumps({"batch_norm": batch_norm_times(dev)}))
+            print(nvidia_smi_line())
+            return 0
         if ab and ab[0] == "--gblock-ab":
             rate = mma_tf32_rate()
             print(json.dumps({"gblock_ab": gblock_ab(ab[1:]),

@@ -25,9 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import MOMENTUM, batch_norm, batch_norm_plain
 from ..ops.conv import conv2d
 from ..parallel import collectives as C
-from ..utils.precision import apply_in_dtype, rounded
+from ..utils.precision import apply_in_dtype, rounded, wide
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -59,15 +60,21 @@ class BatchNorm(nn.Module):
     own update would store the unbiased variance, so it is not used.
     Serving and sampling run train-mode forwards that leave the statistics
     untouched, as the JAX package discards its batch-stat update there.
-    Under a data mesh the train-mode moments are the global batch's
-    (``collectives.batch_moments``, ``mean(x^2) - mean^2`` as flax's),
-    so every rank normalizes and stores the same statistics. In eval mode it
+    A train-mode forward is ``ops/batch_norm.py::batch_norm``: on the card
+    (float32 or bfloat16) the BatchNorm kernels, which read x in its own
+    dtype and update the statistics from their own moments, or raise; on
+    the CPU its plain version. ``use_kernel = False`` takes the plain
+    version on any device (a float64 witness on the card). Under a data
+    mesh the train-mode moments are the global batch's
+    (``collectives.batch_moments``, ``mean(x^2) - mean^2`` as flax's), so
+    every rank normalizes and stores the same statistics. In eval mode it
     normalizes with the running statistics. Statistics and normalization
     are computed in float32 (float64 for a float64 input) and the result is
-    cast back to the input's dtype before the activation.
+    rounded to the input's dtype before the activation.
     """
 
-    momentum = 0.9  # flax convention: ra = momentum * ra + (1 - m) * batch
+    momentum = MOMENTUM  # flax's convention: ra = m ra + (1 - m) batch
+    use_kernel = True
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -79,20 +86,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
-        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train and C.data_reducing() is not None:
+        if train and C.data_reducing() is None:
+            running = ((self.running_mean, self.running_var)
+                       if self.update_stats else None)
+            if not self.use_kernel:
+                return batch_norm_plain(x, self.weight, self.bias, self.eps,
+                                        running, self.momentum)[0]
+            return batch_norm(x, self.weight, self.bias, self.eps, running,
+                              self.momentum)
+        x32 = x.to(wide(x.dtype))
+        if train:
             y = self._global_batch_norm(x32)
-        elif train:
-            if self.update_stats:
-                with torch.no_grad():
-                    dims = [d for d in range(x.dim()) if d != 1]
-                    var, mean = torch.var_mean(x32.detach(), dim=dims,
-                                               correction=0)
-                    m = self.momentum
-                    self.running_mean.mul_(m).add_(mean, alpha=1 - m)
-                    self.running_var.mul_(m).add_(var, alpha=1 - m)
-            y = F.batch_norm(x32, None, None, self.weight, self.bias,
-                             training=True, eps=self.eps)
         else:
             y = F.batch_norm(x32, self.running_mean, self.running_var,
                              self.weight, self.bias, training=False,

@@ -4,7 +4,9 @@ Each source under ``tartangan_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. K3's and K4/K5's sources are built twice,
 once for each compute dtype (``-DTT_BFLOAT16`` for bfloat16), so the two
-halves of their template instances compile in parallel. Libraries go to ``build/torch_kernels/``
+halves of their template instances compile in parallel; the BatchNorm
+kernels' small source holds both dtypes' instances in one library.
+Libraries go to ``build/torch_kernels/``
 at the repo root, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source is rebuilt at its next
 use. Nothing is built at import time. Builds run under a file lock in that
@@ -31,14 +33,16 @@ SOURCES = {"attention_fwd": "attention_fwd.cu",
            "parity_conv": "parity_conv.cu",
            "parity_conv_bf16": "parity_conv.cu",
            "gblock": "gblock.cu",
-           "gblock_bf16": "gblock.cu"}
+           "gblock_bf16": "gblock.cu",
+           "batch_norm": "batch_norm.cu"}
 # the libraries of one source built with other preprocessor definitions
 DEFINES = {"parity_conv_bf16": ("-DTT_BFLOAT16",),
            "gblock_bf16": ("-DTT_BFLOAT16",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry points whose argument types ``load`` sets once: (argtypes,
 # restype); pointers and the stream as void*, so ctypes does not cut them
 _GBLOCK = {
@@ -47,8 +51,13 @@ _GBLOCK = {
     "tt_gblock_workspace": ([_I] * 6, _LL),
 }
 _PARITY_CONV = {"tt_parity_conv": ([_P] * 4 + [_I] * 7 + [_P], _I)}
+_BATCH_NORM = {
+    "tt_batch_norm_fwd": ([_P] * 10 + [_LL, _I, _LL, _I, _F, _F, _I, _P], _I),
+    "tt_batch_norm_bwd": ([_P] * 9 + [_LL, _I, _LL, _I, _I, _P], _I),
+}
 SIGNATURES = {"gblock": _GBLOCK, "gblock_bf16": _GBLOCK,
-              "parity_conv": _PARITY_CONV, "parity_conv_bf16": _PARITY_CONV}
+              "parity_conv": _PARITY_CONV, "parity_conv_bf16": _PARITY_CONV,
+              "batch_norm": _BATCH_NORM}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

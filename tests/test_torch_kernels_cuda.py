@@ -898,3 +898,265 @@ def test_r1_d_update_matches_autograd_without_image_sized_filters(
     for a, r in zip(ours, ref):
         torch.testing.assert_close(a / scale, r / scale,
                                    **TOL[torch.bfloat16])
+
+
+# ------------------------------------------------ BatchNorm (csrc/batch_norm.cu)
+def _bn_case(dev, shape, dtype, offset=0, seed=5):
+    """x, dy (``offset`` elements into their storage: not 16-byte aligned
+    when odd), float32 w and b, and running statistics."""
+    from math import prod
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x, dy = ((torch.randn(prod(shape) + offset, device=dev, generator=gen)
+              * 1.5 + 0.3).to(dtype)[offset:].view(shape) for _ in range(2))
+    w = torch.rand(c, device=dev, generator=gen) + 0.5
+    b = torch.randn(c, device=dev, generator=gen)
+    running = (torch.randn(c, device=dev, generator=gen),
+               torch.rand(c, device=dev, generator=gen) + 0.5)
+    return x, dy, w, b, running
+
+
+def _sum_bound(terms, x):
+    """Per channel, the sum of |terms|: what a float32 sum's rounding
+    error scales with."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    return terms.abs().float().sum(dims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, offset", [
+    ((64, 8, 512, 512), 0),     # the cells' 8-channel blocks at 512^2
+    ((64, 16, 256, 256), 0),    # the 16-channel blocks at 256^2
+    ((64, 128, 4, 4), 0),       # small planes: one run a channel
+    ((3, 5, 7, 9), 0),          # a plane of 63: one value at a time
+    ((2, 3, 1000), 1),          # NCL, not 16-byte aligned
+    ((16, 5), 0),               # (B, C), IQN's
+])
+def test_batch_norm_kernels_match_plain(cuda, shape, offset, dtype):
+    """The forward (y, mean, biased var, the running statistics) and the
+    backward (dx, dw, db) against the plain versions on the same inputs.
+    Tolerances: the statistics and dw, db are sums in another order (mean
+    and var 1e-5 relative, dw and db 1e-5 of the sum of their terms'
+    magnitudes); y and dx are float32 results of those statistics rounded
+    once to x's dtype (1e-4 of dx's max-abs and of y, float32; one bf16 ulp,
+    2**-7 relative, bfloat16)."""
+    from tartangan_torch.ops import batch_norm as BN
+    x, dy, w, b, running = _bn_case(cuda, shape, dtype, offset)
+    ref_running = tuple(t.clone() for t in running)
+    before = BN.batch_norm.launches
+    y, mean, var, rstd = BN._forward_kernel(x, w, b, 1e-5, *running, 0.9)
+    dx, dw, db = BN._backward_kernel(dy, x, w, mean, rstd)
+    torch.cuda.synchronize()
+    assert BN.batch_norm.launches == before + 2
+    assert BN.batch_norm.launches_by_dtype[dtype] >= 2
+    ref_y, ref_mean, ref_var, ref_rstd = BN.batch_norm_plain(
+        x, w, b, 1e-5, ref_running, 0.9)
+    ref_dx, ref_dw, ref_db = BN.batch_norm_backward_plain(
+        dy, x, w, ref_mean, ref_rstd)
+    stats = dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mean, ref_mean, **stats)
+    torch.testing.assert_close(var, ref_var, **stats)
+    torch.testing.assert_close(rstd, ref_rstd, **stats)
+    for got, want in zip(running, ref_running):
+        torch.testing.assert_close(got, want, **stats)
+    rounded = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=1e-4))
+    assert y.dtype == dx.dtype == dtype and y.is_contiguous()
+    torch.testing.assert_close(y.float(), ref_y.float(), **rounded)
+    scale = float(ref_dx.abs().max())
+    torch.testing.assert_close(dx.float() / scale, ref_dx.float() / scale,
+                               **rounded)
+    xhat = (x.float() - ref_mean.view((1, -1) + (1,) * (x.dim() - 2))) \
+        * ref_rstd.view((1, -1) + (1,) * (x.dim() - 2))
+    for got, want, terms in ((db, ref_db, dy),
+                             (dw, ref_dw, dy.float() * xhat)):
+        assert ((got - want).abs() <= 1e-5 * _sum_bound(terms, x)
+                + 1e-6).all(), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two calls give the same bits."""
+    from tartangan_torch.ops import batch_norm as BN
+    x, dy, w, b, _ = _bn_case(cuda, (64, 16, 128, 128), dtype)
+    runs = []
+    for _ in range(2):
+        y, mean, var, rstd = BN._forward_kernel(x, w, b, 1e-5, None, None,
+                                                0.9)
+        runs.append((y, mean, var, rstd)
+                    + BN._backward_kernel(dy, x, w, mean, rstd))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernels_reject_what_they_cannot_take(cuda):
+    """A CUDA tensor the kernels cannot take raises, float64 too; a layer
+    with ``use_kernel = False`` takes the plain version and launches
+    nothing."""
+    from tartangan_torch.models.layers import BatchNorm
+    from tartangan_torch.ops import batch_norm as BN
+    x, _, w, b, _ = _bn_case(cuda, (4, 3, 8, 8), torch.float32)
+    with pytest.raises(TypeError):
+        BN.batch_norm(x.half(), w, b)
+    with pytest.raises(TypeError):
+        BN.batch_norm(x, w.bfloat16(), b)
+    with pytest.raises(ValueError):
+        BN.batch_norm(x[0, 0, 0], w[:8], b[:8])
+    with pytest.raises(ValueError):
+        BN.batch_norm(x, w[:2], b[:2])
+    with pytest.raises(TypeError):
+        BN.batch_norm(x.double(), w, b)
+    with pytest.raises(TypeError):
+        BN.batch_norm(x.double().requires_grad_(), w.double(), b.double())
+    bn = BatchNorm(3).to(cuda).double()
+    with pytest.raises(TypeError):
+        bn(x.double())
+    bn.use_kernel = False
+    before = BN.batch_norm.launches
+    y = bn(x.double())
+    assert y.dtype == torch.float64 and BN.batch_norm.launches == before
+
+
+@pytest.mark.cuda
+def test_batch_norm_export_records_the_op(cuda):
+    """Outside autograd the layer's forward is the custom op
+    ``tartangan::batch_norm``, which ``torch.export`` records by name and
+    which runs the kernels."""
+    from tartangan_torch.models.layers import BatchNorm
+    from tartangan_torch.ops import batch_norm as BN
+    bn = BatchNorm(3).to(cuda).requires_grad_(False)
+    x, _, _, _, _ = _bn_case(cuda, (4, 3, 16, 16), torch.bfloat16)
+    program = torch.export.export(bn, (x,))
+    assert "tartangan.batch_norm" in str(program.graph)
+    before = BN.batch_norm.launches
+    torch.testing.assert_close(program.module()(x), bn(x), rtol=0, atol=0)
+    assert BN.batch_norm.launches == before + 2
+
+
+def _thin_models(dev, dtype=torch.bfloat16):
+    """'512thin''s G and D as the trainer builds them (--dtype ``dtype``, the
+    CLI's defaults), attention's gamma 0.7 so that it counts."""
+    from tartangan_torch.configs import GAN_CONFIGS
+    from tartangan_torch.models import factories as MF
+    from tartangan_torch.models.attention import SelfAttention2d
+    from tartangan_torch.models.pluggan import Discriminator, Generator
+    torch.manual_seed(0)
+    cfg = GAN_CONFIGS["512thin"]
+    g = Generator(cfg, input_factory=MF.g_input_factory("mlp", "relu"),
+                  block_factory=MF.g_block_factory("bn", "relu"),
+                  output_factory=MF.g_output_factory("bn", "relu"),
+                  dtype=dtype).to(dev)
+    d = Discriminator(cfg, input_factory=MF.d_input_factory(),
+                      block_factory=MF.d_block_factory("bn", "relu"),
+                      output_factory=MF.d_output_factory("bn", "relu"),
+                      dtype=dtype).to(dev)
+    for m in list(g.modules()) + list(d.modules()):
+        if isinstance(m, SelfAttention2d):
+            m.gamma.data.fill_(0.7)
+    return cfg, g, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_r1_d_update_batch_norm_kernels_match_plain(cuda, dtype):
+    """One D update with R1 of '512thin''s D at B 4 through the BatchNorm
+    kernels (R1's second-order terms through ``_BatchNormBackward``) and
+    the same update on the plain version (``use_kernel = False``: casts,
+    ``F.batch_norm`` and ATen's double backward), in ``dtype``, each
+    against the plain update in float64: every parameter's gradient and
+    running statistic, after dividing by the float64 values' max-abs. The
+    kernels' largest error is at most 1.5 times the plain version's: not a
+    tolerance on their
+    difference, since the gradient of a conv bias ahead of a train-mode
+    BatchNorm, 0 in exact arithmetic, is rounding noise that two orders of
+    rounding do not share (in bf16 the two read 4.5e-2 of the max-abs
+    apart on an H100)."""
+    from tartangan_torch.models import layers
+    from tartangan_torch.models.attention import SelfAttention2d
+    from tartangan_torch.models.losses import (
+        bce_with_logits,
+        r1_gradient_penalty,
+    )
+    from tartangan_torch.ops import batch_norm as BN
+    from tartangan_torch.train.common import bce_labels
+
+    b = 4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    real, fake = (torch.rand(b, 3, 512, 512, device=cuda, generator=gen)
+                  * 2 - 1 for _ in range(2))
+
+    def update(dt, use_kernel=True):
+        _, _, d = _thin_models(cuda, dt)
+        if dt == torch.float64:  # K1/K2 and BatchNorm's take f32 and bf16
+            d.double()
+            use_kernel = False
+        for m in d.modules():
+            if isinstance(m, layers.BatchNorm) or (
+                    dt == torch.float64 and isinstance(m, SelfAttention2d)):
+                m.use_kernel = use_kernel
+        before = BN.batch_norm.launches
+        with layers.update_batch_stats(d):
+            gp, p_real = r1_gradient_penalty(
+                d, real.to(dt).requires_grad_())
+            loss = bce_with_logits(torch.cat([p_real, d(fake.to(dt))], 0),
+                                   bce_labels(b, device=cuda))
+        (loss + 5.0 * gp).backward()
+        torch.cuda.synchronize()
+        stats = [t for m in d.modules() if isinstance(m, layers.BatchNorm)
+                 for t in (m.running_mean, m.running_var)]
+        return ([p.grad.double() for p in d.parameters()],
+                [t.double() for t in stats], BN.batch_norm.launches - before)
+
+    ours = update(dtype)
+    plain, exact = update(dtype, False), update(torch.float64)
+    assert ours[2] > 0 and plain[2] == exact[2] == 0
+
+    def error(run, i):
+        scale = max(float(t.abs().max()) for t in exact[i])
+        return max(float((a - e).abs().max()) for a, e
+                   in zip(run[i], exact[i])) / scale
+    for i, what in enumerate(("gradient", "running statistic")):
+        print(f"largest {what} error / max-abs against float64: kernels "
+              f"{error(ours, i):.3e}, plain {error(plain, i):.3e}")
+        assert error(ours, i) <= 1.5 * error(plain, i)
+
+
+@pytest.mark.cuda
+def test_thin_step_batch_norm_launches(cuda):
+    """One bfloat16 '512thin' step with R1 (``gan_update``) at B 4: every
+    train-mode BatchNorm of G and D runs the kernels, forward and backward:
+    G twice forward (the D update's no-grad forward and the G update) and
+    once backward; D three times forward (reals with R1, fakes, the G
+    update) and four times backward (R1's gradient and the loss on the
+    reals, the fakes, the G update)."""
+    from tartangan_torch.models.layers import BatchNorm
+    from tartangan_torch.ops import batch_norm as BN
+    from tartangan_torch.train.cnn import gan_update
+    from tartangan_torch.train.common import make_adam
+    from tartangan_torch.train.state import GANTrainState
+
+    cfg, g, d = _thin_models(cuda)
+    _, g_target, _ = _thin_models(cuda)
+    state = GANTrainState(g=g, g_target=g_target.requires_grad_(False), d=d,
+                          opt_g=make_adam(g.parameters(), 1e-4),
+                          opt_d=make_adam(d.parameters(), 4e-4))
+    n_g, n_d = (sum(type(m) is BatchNorm for m in net.modules())
+                for net in (g, d))
+    assert n_g > 0 and n_d > 0
+    b = 4
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    real = torch.rand(b, 3, 512, 512, device=cuda, generator=gen) * 2 - 1
+    z_d, z_g = (torch.randn(s, device=cuda, generator=gen)
+                for s in ((1, b, cfg.latent_dims), (b, cfg.latent_dims)))
+    before = dict(BN.batch_norm.launches_by_dtype)
+    metrics = gan_update(state, real, z_d, z_g, gp_weight=5.0,
+                         ema_factor=1e-3)
+    torch.cuda.synchronize()
+    launches = (BN.batch_norm.launches_by_dtype[torch.bfloat16]
+                - before.get(torch.bfloat16, 0))
+    print(f"BatchNorm: {n_g} in G, {n_d} in D; {launches} launches a step")
+    assert launches == 3 * n_g + 7 * n_d
+    assert all(torch.isfinite(v) for v in metrics.values())
